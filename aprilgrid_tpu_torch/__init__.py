@@ -2,12 +2,14 @@
 
 A port of the JAX package ``aprilgrid_tpu`` (which stays the reference)
 to PyTorch and hand-written CUDA kernels for NVIDIA Hopper. So far it
-carries the exact hybrid detector: dense front-end and tag decode on the
-card, board search in native C++ on the host.
+carries the hybrid detector, exact and turbo (``decimate=True/"auto"``):
+dense front-end and tag decode on the card, board search in native C++ on
+the host.
 
 Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
 
-* :class:`TagDetector` — ``detect`` and ``detect_batch``; runs on the card
+* :class:`TagDetector` — ``detect``, ``detect_batch`` and
+  ``refined_saddle_points``; runs on the card
   by default (``device="cuda"``), on the plain PyTorch versions of the
   kernels with ``device="cpu"``.
 * :class:`DetectorParams` — tuning knobs.

@@ -18,8 +18,8 @@
 //   (d) record: one thread per root takes the plain mean of the members
 //       (int64 sums over the f32 count), rounds it, applies the bounds
 //       gate and evaluates the ROCHADE fit on the 9x9 blur patch around
-//       it, in the op order of ops/rochade.py::fit_record (rank-1 fit
-//       stencils, as the TPU kernel's _record_planes). Accepted roots
+//       it (rochade.cuh, the op order of ops/rochade.py::fit_record: rank-1
+//       fit stencils, as the TPU kernel's _record_planes). Accepted roots
 //       append [x, y, 0, c3, c4, c5, 1, label + 1] with an atomicAdd
 //       cursor; rows past the capacity are counted, not written.
 //
@@ -28,39 +28,32 @@
 // than ~40 rows or wider than 256 columns were dropped and counted) does
 // not exist here; the wrapper reports 0 drops.
 //
+// The frame may be an f32 luma plane in the padded layout (mode 2, the
+// turbo path's half-resolution plane from the decimating front kernel):
+// launch (a) then blurs the plane as it is; (b)-(d) are unchanged. The TPU
+// kernel's turbo-only blob pre-filter and its 160-row window shorten its
+// serial root drain and have no counterpart here.
+//
 // Bound on the H100: memory. The dense part (a) reads the raw frame and
 // writes the blur plane and the label plane (9 bytes per pixel for u8
 // gray); (b)-(d) read the label plane once each and touch only the sparse
 // masked pixels. The label, count and sum planes are pixel-indexed, so the
 // atomics of a blob land on one root without any compaction pass.
+#include "rochade.cuh"
 #include "stencil.cuh"
 
 namespace {
 
 using namespace ag;
 
-struct FitTaps {
-  int n_cone;
-  int cone_dr[25];
-  int cone_dc[25];
-  float cone_w[25];
-  int vid[5];
-  int nv[5];
-  int vd[5][5];
-  float vw[5][5];
-  int nh[5];
-  int hd[5][5];
-  float hw[5][5];
-};
-
 __global__ void __launch_bounds__(THREADS)
-blur_mask_kernel(const void* raw, int hp, int wp, int channels, int u16,
+blur_mask_kernel(const void* raw, int hp, int wp, int channels, int mode,
                  int h, int w, Taps7 taps, const float* thr, float* blur,
                  int* labels, int* cnt, unsigned long long* sums) {
   __shared__ TileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int c0 = si * STRIP_W;
-  blur_tile(s, raw, b, ti, si, hp, wp, channels, u16, w, taps);
+  blur_tile(s, raw, b, ti, si, hp, wp, channels, mode, w, taps);
   const float t = thr[b];
   const size_t fbase = (size_t)b * hp * wp;
   for (int idx = threadIdx.x; idx < TILE_H * STRIP_W; idx += THREADS) {
@@ -134,72 +127,6 @@ __global__ void stats_kernel(int* labels, int* cnt, unsigned long long* sums,
   atomicAdd(sums + 2 * (base + root) + 1, (unsigned long long)(i % wp));
 }
 
-// ROCHADE fit on the 9x9 blur patch around (rx, ry): the op sequence of
-// ops/rochade.py::fit_record. Returns the accept gate.
-__device__ bool fit_record(const float* bl, int wp, int rx, int ry,
-                           const FitTaps& f, float move_thr, float* x0o,
-                           float* y0o, float* c3o, float* c4o, float* c5o) {
-  float patch[9][9];
-#pragma unroll
-  for (int a = 0; a < 9; ++a)
-#pragma unroll
-    for (int c = 0; c < 9; ++c)
-      patch[a][c] = bl[(size_t)(ry - 4 + a) * wp + (rx - 4 + c)];
-  float sm[5][5];
-#pragma unroll
-  for (int a = 0; a < 5; ++a)
-#pragma unroll
-    for (int c = 0; c < 5; ++c) sm[a][c] = 0.0f;
-  for (int t = 0; t < f.n_cone; ++t) {
-    const int dr = f.cone_dr[t], dc = f.cone_dc[t];
-    const float wt = f.cone_w[t];
-#pragma unroll
-    for (int a = 0; a < 5; ++a)
-#pragma unroll
-      for (int c = 0; c < 5; ++c)
-        sm[a][c] = __fadd_rn(sm[a][c], __fmul_rn(wt, patch[a + dr][c + dc]));
-  }
-  float vert[5][5];
-  bool have[5] = {false, false, false, false, false};
-  float coef[5];
-  for (int j = 0; j < 5; ++j) {
-    const int v = f.vid[j];
-    if (!have[v]) {
-      for (int c = 0; c < 5; ++c) {
-        float acc = 0.0f;
-        for (int t = 0; t < f.nv[j]; ++t)
-          acc = __fadd_rn(acc, __fmul_rn(f.vw[j][t], sm[f.vd[j][t]][c]));
-        vert[v][c] = acc;
-      }
-      have[v] = true;
-    }
-    float acc = 0.0f;
-    for (int t = 0; t < f.nh[j]; ++t)
-      acc = __fadd_rn(acc, __fmul_rn(f.hw[j][t], vert[v][f.hd[j][t]]));
-    coef[j] = acc;
-  }
-  const float a1 = coef[0], a2 = coef[1], a3 = coef[2], a4 = coef[3],
-              a5 = coef[4];
-  const float dqf = __fsub_rn(__fmul_rn(__fmul_rn(2.0f, a1), __fmul_rn(2.0f, a3)),
-                              __fmul_rn(a2, a2));
-  const float sd = dqf == 0.0f ? 1.0f : dqf;
-  const float x0 = __fdiv_rn(
-      __fadd_rn(__fmul_rn(__fmul_rn(-2.0f, a3), a4), __fmul_rn(a2, a5)), sd);
-  const float y0 = __fdiv_rn(
-      __fadd_rn(__fmul_rn(__fmul_rn(-2.0f, a1), a5), __fmul_rn(a2, a4)), sd);
-  const float c5 = __fmul_rn(__fadd_rn(a1, a3), 0.5f);
-  const float c4 = __fmul_rn(__fsub_rn(a1, a3), 0.5f);
-  const float c3 = __fmul_rn(a2, 0.5f);
-  const float kk = __fsqrt_rn(__fadd_rn(__fmul_rn(c4, c4), __fmul_rn(c3, c3)));
-  *x0o = x0;
-  *y0o = y0;
-  *c3o = c3;
-  *c4o = c4;
-  *c5o = c5;
-  return dqf < 0.0f && fabsf(x0) <= move_thr && fabsf(y0) <= move_thr &&
-         fabsf(c5) < kk;
-}
-
 __global__ void record_kernel(const int* labels, const int* cnt,
                               const unsigned long long* sums,
                               const float* blur, int hp, int wp, int h, int w,
@@ -220,8 +147,8 @@ __global__ void record_kernel(const int* labels, const int* cnt,
   const int ry = (int)floorf(__fadd_rn(cy, 0.5f));
   if (ry - hp2 < 0 || ry + hp2 >= h || rx - hp2 < 0 || rx + hp2 >= w) return;
   float x0, y0, c3, c4, c5;
-  if (!fit_record(blur + base, wp, rx, ry, fit, move_thr, &x0, &y0, &c3, &c4,
-                  &c5))
+  if (!fit_record(blur + base + (size_t)(ry - 4) * wp + (rx - 4), wp, fit,
+                  move_thr, &x0, &y0, &c3, &c4, &c5))
     return;
   const int slot = atomicAdd(napp + b, 1);
   if (slot >= capf) return;
@@ -238,22 +165,23 @@ __global__ void record_kernel(const int* labels, const int* cnt,
 
 }  // namespace
 
-// raw: (b, hp + 16, wp * channels) u8/u16; thr: (b,) f32 device;
+// raw: (b, hp + 16, wp * channels) u8 (mode 0), u16 (mode 1) or f32 luma
+// (mode 2, one channel); thr: (b,) f32 device;
 // scratch: blur (b, hp, wp) f32, labels and cnt (b, hp, wp) int32, sums
 // (b, hp, wp, 2) uint64; napp (b,) int32 and fields (b, capf, 8) f32
 // zero-filled by the caller. Returns the first launch error, or 0.
 extern "C" int ag_cluster_rochade_raw(
-    const void* raw, int b, int hp, int wp, int channels, int u16, int h,
+    const void* raw, int b, int hp, int wp, int channels, int mode, int h,
     int w, const void* thr, const float* taps7, const void* fit_taps,
     float move_thr, int hp2, void* blur, void* labels, void* cnt, void* sums,
     void* napp, void* fields, int capf, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   ag::Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
-  const FitTaps fit = *(const FitTaps*)fit_taps;
+  const ag::FitTaps fit = *(const ag::FitTaps*)fit_taps;
   dim3 tgrid(wp / ag::STRIP_W, hp / ag::TILE_H, b);
   blur_mask_kernel<<<tgrid, ag::THREADS, 0, st>>>(
-      raw, hp, wp, channels, u16, h, w, taps, (const float*)thr,
+      raw, hp, wp, channels, mode, h, w, taps, (const float*)thr,
       (float*)blur, (int*)labels, (int*)cnt, (unsigned long long*)sums);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -14,6 +14,10 @@
 // reciprocals; it agrees with the op-by-op values to ~1e-9 in the
 // response, the tolerance its own tests use.)
 //
+// A frame may also arrive as an f32 luma plane in the same padded layout
+// (MODE_F32: the turbo path's half-resolution plane); the stencil then
+// reads the values as they are.
+//
 // Layout: the padded raw frame (pad_raw) has hp + 16 rows (8 edge rows
 // above the image, >= 8 below) of wp * channels elements. Tile i covers
 // padded rows [64 i + 8, 64 i + 72), i.e. image rows [64 i, 64 i + 64);
@@ -40,16 +44,23 @@ struct Taps7 {
   float k[7];
 };
 
+// element type of a padded frame
+constexpr int MODE_U8 = 0;
+constexpr int MODE_U16 = 1;
+constexpr int MODE_F32 = 2;   // f32 luma plane, one channel
+
 // Rec.709 weights pre-divided by 255, as the reference's deinterleave
 // matrix stores them (f32 of the double quotient).
 constexpr float kLumaR = (float)(0.2126 / 255.0);
 constexpr float kLumaG = (float)(0.7152 / 255.0);
 constexpr float kLumaB = (float)(0.0722 / 255.0);
 
-// f32 luma of padded-raw element (row pointer, column c).
-__device__ __forceinline__ float luma_f32(const uint8_t* row8,
-                                          const uint16_t* row16, int c,
-                                          int channels, int u16) {
+// f32 luma of padded-frame element: ``off`` is the element offset of the
+// row's first element, ``c`` the column.
+__device__ __forceinline__ float luma_f32(const void* raw, size_t off, int c,
+                                          int channels, int mode) {
+  if (mode == MODE_F32) return ((const float*)raw)[off + c];
+  const uint8_t* row8 = (const uint8_t*)raw + off;
   if (channels == 3) {
     float r = (float)row8[3 * c];
     float g = (float)row8[3 * c + 1];
@@ -58,21 +69,22 @@ __device__ __forceinline__ float luma_f32(const uint8_t* row8,
     acc = __fmaf_rn(g, kLumaG, acc);
     return __fmaf_rn(b, kLumaB, acc);
   }
-  if (u16) return __fdiv_rn((float)row16[c], 65535.0f);
+  if (mode == MODE_U16)
+    return __fdiv_rn((float)((const uint16_t*)raw)[off + c], 65535.0f);
   return __fdiv_rn((float)row8[c], 255.0f);
 }
 
-// u8 luma of padded-raw element (image crate to_luma8).
-__device__ __forceinline__ uint8_t luma_u8(const uint8_t* row8,
-                                           const uint16_t* row16, int c,
-                                           int channels, int u16) {
+// u8 luma of padded-raw element (image crate to_luma8); u8/u16 modes.
+__device__ __forceinline__ uint8_t luma_u8(const void* raw, size_t off, int c,
+                                           int channels, int mode) {
+  const uint8_t* row8 = (const uint8_t*)raw + off;
   if (channels == 3) {
     int v = 2126 * (int)row8[3 * c] + 7152 * (int)row8[3 * c + 1] +
             722 * (int)row8[3 * c + 2];
     return (uint8_t)(v / 10000);
   }
-  if (u16) {
-    float x = (float)row16[c];
+  if (mode == MODE_U16) {
+    float x = (float)((const uint16_t*)raw)[off + c];
     float q = __fdiv_rn(__fadd_rn(__fmul_rn(x, 255.0f), 32767.0f), 65535.0f);
     return (uint8_t)(int)floorf(q);
   }
@@ -89,7 +101,7 @@ struct TileSmem {
 // result is the blur at image row 64 ti - 1 + y, column 64 si - 1 + x.
 __device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
                                           int b, int ti, int si, int hp,
-                                          int wp, int channels, int u16,
+                                          int wp, int channels, int mode,
                                           int w, const Taps7& taps) {
   const int tid = threadIdx.x;
   const int c0 = si * STRIP_W;
@@ -101,8 +113,7 @@ __device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
     int y = idx / LCOLS, x = idx % LCOLS;
     int c = min(max(c0 - HALO + x, 0), w - 1);
     size_t off = (size_t)b * frame_elems + (size_t)(pr0 + y) * row_elems;
-    s.lum[y][x] = luma_f32((const uint8_t*)raw + off,
-                           (const uint16_t*)raw + off, c, channels, u16);
+    s.lum[y][x] = luma_f32(raw, off, c, channels, mode);
   }
   __syncthreads();
   // horizontal pass: tmp[y][x] = blur_h at column c0 - 1 + x

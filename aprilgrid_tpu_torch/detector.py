@@ -1,4 +1,4 @@
-"""TagDetector facade — the public detect API, exact hybrid mode.
+"""TagDetector facade — the public detect API, hybrid mode (exact and turbo).
 
 Mirrors the reference facade (TagDetector, src/detector.rs:17-23,363-541):
 the dense front-end and the tag decode run on the card through the port's
@@ -8,11 +8,14 @@ batch is processed in chunks, each in order:
     front-end -> one device-to-host copy of the packed saddles
     -> board search -> decode -> release decoded saddles -> next pass
 
-for ``max_num_of_boards`` passes (src/detector.rs:510-538).
+for ``max_num_of_boards`` passes (src/detector.rs:510-538). With
+``decimate`` the front-end is the approximate turbo path
+(pipeline.py::decimated_frontend_batch); everything after it is the same.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -22,7 +25,12 @@ from . import native
 from .config import CONSTANTS, DEFAULT_CAPACITIES, Capacities, DetectorParams, PipelineConstants
 from .families import FamilySpec, TagFamily, get_family
 from .ops.decode import decode_quads_batch
-from .pipeline import frontend_packed
+from .pipeline import (
+    _turbo_nms_env,
+    frontend_packed,
+    saddle_frontend_batch,
+    turbo_fast_path_ok,
+)
 
 
 class Tag:
@@ -60,9 +68,18 @@ class TagDetector:
 
     ``device`` is where the dense stages run: "cuda" (the default) runs the
     CUDA kernels and raises if no card is present; "cpu" runs their plain
-    PyTorch versions. Only the exact hybrid mode exists so far:
-    ``mode="xla"`` and ``decimate=True/"auto"`` raise NotImplementedError
-    (ROADMAP.md lists the slices that bring them)."""
+    PyTorch versions.
+
+    ``decimate`` selects the approximate turbo mode: detect at half
+    resolution and re-refine the surviving corners at full resolution from
+    the raw frame. On frames of 2 MP and more it finds the exact mode's
+    tags with corners within 0.1 px of the oracle
+    (tests/test_torch_decimate.py); smaller frames lose recall. ``True``:
+    always; ``"auto"``: only on frames >= 2 MP; ``False`` (default): the
+    exact mode, which keeps reference parity.
+
+    Only the hybrid mode exists so far: ``mode="xla"`` raises
+    NotImplementedError (ROADMAP.md lists the slice that brings it)."""
 
     def __init__(
         self,
@@ -79,11 +96,8 @@ class TagDetector:
                 f"mode={mode!r}: only the hybrid mode is ported; the "
                 "on-device board search is queued in ROADMAP.md"
             )
-        if decimate is not False:
-            raise NotImplementedError(
-                f"decimate={decimate!r}: the turbo mode is not ported yet "
-                "(ROADMAP.md, turbo slice)"
-            )
+        if decimate not in (False, True, "auto"):
+            raise ValueError(f"decimate must be False/True/'auto', got {decimate!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -101,6 +115,24 @@ class TagDetector:
         self.decimate = decimate
         native.build()  # the hybrid path needs the host search: raise now
 
+    def _use_decimate(self, h: int, w: int) -> bool:
+        """Resolve the ``decimate`` policy for an (h, w) frame: "auto"
+        engages only at >= 2 MP (1024x1024 scenes lose tags at half
+        resolution)."""
+        if self.decimate == "auto":
+            return h * w >= 2_000_000
+        return bool(self.decimate)
+
+    def _turbo_nms(self, h: int, w: int) -> bool:
+        """The turbo extraction variant for (h, w) frames, a static choice
+        as in the JAX package's facade: ``AG_TURBO_NMS`` pins it; "auto"
+        takes the NMS kernel iff the frame lies in ``turbo_fast_path_ok``
+        and the host has more than one core, else the drain."""
+        policy = _turbo_nms_env()
+        if policy == "auto":
+            return turbo_fast_path_ok(h, w) and (os.cpu_count() or 1) > 1
+        return policy == "1"
+
     # -- public API ---------------------------------------------------------
 
     def detect(self, img) -> dict[int, list[tuple[float, float]]]:
@@ -115,6 +147,23 @@ class TagDetector:
         sizes the sub-batches (default: ``_default_chunk``)."""
         return self._detect_hybrid(_as_tensor(imgs), chunk=chunk)
 
+    def refined_saddle_points(self, img) -> list[Saddle]:
+        """Front-end only (reference: src/detector.rs:408-446): the
+        refined saddles of one image, for corner-only consumers."""
+        frames = _as_tensor(img)[None].to(self.device)
+        h, w = int(frames.shape[1]), int(frames.shape[2])
+        dec = self._use_decimate(h, w)
+        saddles, _, _ = saddle_frontend_batch(
+            frames, self.params, self.consts, self.caps,
+            decimate=dec, nms=self._turbo_nms(h, w) if dec else None,
+        )
+        p, k, theta, phi, valid = (t[0].cpu().numpy() for t in saddles)
+        return [
+            Saddle(p=(float(p[i, 0]), float(p[i, 1])), k=float(k[i]),
+                   theta=float(theta[i]), phi=float(phi[i]))
+            for i in np.flatnonzero(valid)
+        ]
+
     # -- hybrid runtime -----------------------------------------------------
 
     def _detect_hybrid(self, imgs: torch.Tensor, chunk: int | None = None):
@@ -127,14 +176,18 @@ class TagDetector:
             chunk = _default_chunk(*hw)
         chunk = max(1, int(chunk))
         n_chunks = -(-b // chunk)
+        dec = self._use_decimate(*hw)
+        nms = self._turbo_nms(*hw) if dec else None
         for i in range(n_chunks):
             lo, hi = i * b // n_chunks, (i + 1) * b // n_chunks
-            self._detect_chunk(imgs[lo:hi], hw, results[lo:hi])
+            self._detect_chunk(imgs[lo:hi], hw, results[lo:hi], dec, nms)
         return results
 
-    def _detect_chunk(self, frames: torch.Tensor, hw, results: list[dict]):
+    def _detect_chunk(self, frames: torch.Tensor, hw, results: list[dict],
+                      decimate: bool, nms: bool | None):
         packed, luma8 = frontend_packed(
-            frames.to(self.device), self.params, self.consts, self.caps
+            frames.to(self.device), self.params, self.consts, self.caps,
+            decimate, nms,
         )
         pk = packed.cpu().numpy()  # the chunk's one saddle transfer
         _warn_counters(pk[:, -1, :3])
@@ -232,7 +285,8 @@ def _as_tensor(imgs) -> torch.Tensor:
 def _default_chunk(h: int, w: int) -> int:
     """Frames per chunk for an (h, w) frame: 32 at 1080p, scaled at a
     constant pixel budget and rounded down to a power of two in [16, 64]
-    (the JAX package's choice; 4K gets 16, small frames 64)."""
+    (the JAX package's choice; 4K gets 16, small frames 64). The turbo
+    mode uses the same sizes."""
     px = h * w
     budget = max(16, min(64, (40 * 1920 * 1080) // max(px, 1)))
     return 1 << (budget.bit_length() - 1)

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the hybrid detector's main path.
+"""Hand-written CUDA kernels of the hybrid detector's exact and turbo paths.
 
 Each public function here is a wrapper: on a CPU tensor it runs its plain
 PyTorch version (the reference the kernel is held against); on a CUDA
@@ -7,7 +7,15 @@ back. ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not
 count), so a run can show that the main path went through the kernels.
 """
 
-LAUNCHES = {"front_kernel": 0, "cluster_rochade_raw": 0, "hamming_scan": 0}
+LAUNCHES = {
+    "front_kernel": 0,
+    "cluster_rochade_raw": 0,
+    "hamming_scan": 0,
+    "front_kernel_decimate": 0,
+    "cluster_rochade_raw[luma_f32]": 0,  # the cluster kernel's f32-luma mode
+    "nms_extract_raw": 0,
+    "sparse_refine_raw": 0,
+}
 
 
 def reset_launches() -> None:

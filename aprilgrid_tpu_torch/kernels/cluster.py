@@ -6,7 +6,8 @@
 union-find, member sums, per-root record + append; the source's head notes
 what bounds it and how the design answers); on a CPU tensor it runs
 ``cluster_rochade_raw_plain``, built from ops/frontend.py, ops/cluster.py
-and ops/rochade.py.
+and ops/rochade.py. Its ``luma_f32`` mode (the turbo path's drain variant)
+reads an f32 half-resolution luma plane instead of raw pixels.
 
 Differences from the TPU kernel, by design:
 
@@ -18,7 +19,14 @@ Differences from the TPU kernel, by design:
   same pixel unless the mean lies within f32 rounding of a .5 tie, which
   integer means of blobs under ~1000 pixels cannot;
 * accepted rows are appended in no particular order;
-  ``saddles_from_candidates`` restores scan order by a stable label sort.
+  ``saddles_from_candidates`` restores scan order by a stable label sort;
+* the turbo (``luma_f32``) mode has no blob pre-filter and no window
+  height: the TPU kernel's ``prefilter=True`` drops a blob unless a member
+  lies next to a pixel whose record is accepted, and its ``win=160``
+  shortens the sweep window, both to cut its serial root drain; neither
+  changes which blobs are accepted on the scenes the tests hold it to
+  (``tests/test_torch_decimate.py``), and the JAX package's own plain
+  turbo path has no such filter either.
 """
 
 from __future__ import annotations
@@ -30,45 +38,14 @@ import torch
 from ..ops.cluster import cluster_centroids
 from ..ops.frontend import gaussian_blur, hessian_response
 from ..ops.geometry import rust_round
-from ..ops.rochade import Saddles, fit_record, fit_taps, gather_patches, saddle_angles
+from ..ops.rochade import Saddles, fit_record, gather_patches, saddle_angles
 from . import LAUNCHES
+from ._fit import fit_struct
 from ._lib import check, lib, require_cuda, stream_of
 from .frontend import _taps, check_raw, raw_luma
 
 _CAPF = 1024  # accepted-candidate capacity PER FRAME (append-compacted)
-
-
-class _FitTaps(ctypes.Structure):
-    """Mirror of ``FitTaps`` in csrc/cluster.cu."""
-
-    _fields_ = [
-        ("n_cone", ctypes.c_int),
-        ("cone_dr", ctypes.c_int * 25),
-        ("cone_dc", ctypes.c_int * 25),
-        ("cone_w", ctypes.c_float * 25),
-        ("vid", ctypes.c_int * 5),
-        ("nv", ctypes.c_int * 5),
-        ("vd", (ctypes.c_int * 5) * 5),
-        ("vw", (ctypes.c_float * 5) * 5),
-        ("nh", ctypes.c_int * 5),
-        ("hd", (ctypes.c_int * 5) * 5),
-        ("hw", (ctypes.c_float * 5) * 5),
-    ]
-
-
-def _fit_struct(half_patch: int) -> _FitTaps:
-    cone, fits = fit_taps(half_patch)
-    s = _FitTaps()
-    s.n_cone = len(cone)
-    for t, (dr, dc, wgt) in enumerate(cone):
-        s.cone_dr[t], s.cone_dc[t], s.cone_w[t] = dr, dc, wgt
-    for j, (vid, vt, ht) in enumerate(fits):
-        s.vid[j], s.nv[j], s.nh[j] = vid, len(vt), len(ht)
-        for t, (d, wgt) in enumerate(vt):
-            s.vd[j][t], s.vw[j][t] = d, wgt
-        for t, (d, wgt) in enumerate(ht):
-            s.hd[j][t], s.hw[j][t] = d, wgt
-    return s
+_MODE_F32 = 2  # csrc/stencil.cuh: the frame is an f32 luma plane
 
 
 def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
@@ -110,9 +87,11 @@ def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
 
 
 def cluster_rochade_raw_plain(raw_p, thr, h, w, channels=1, u16=False,
-                              sigma=1.5, hp2=4, move_thr=1.0):
+                              sigma=1.5, hp2=4, move_thr=1.0, luma_f32=False):
     """Plain PyTorch version of ``cluster_rochade_raw``."""
-    lf, _ = raw_luma(raw_p[:, 8 : 8 + h, : w * channels], channels, u16)
+    lf = raw_p[:, 8 : 8 + h, : w * channels]
+    if not luma_f32:
+        lf, _ = raw_luma(lf, channels, u16)
     return cluster_from_blur_plain(gaussian_blur(lf, sigma), thr, hp2, move_thr)
 
 
@@ -126,14 +105,20 @@ def cluster_rochade_raw(
     sigma: float = 1.5,
     hp2: int = 4,
     move_thr: float = 1.0,
+    luma_f32: bool = False,
 ):
     """Accepted candidate saddles, append-compacted per frame.
+
+    With ``luma_f32`` the input is an f32 luma plane in the ``pad_half``
+    layout (the turbo path's half plane from ``front_kernel_decimate``)
+    and ``h, w`` are its true size: the blur reads the plane as it is,
+    everything after is unchanged.
 
     Returns (fields (B, _CAPF, 8) f32: [x, y, k, c3, c4, c5, ok, label+1]
     with k left 0 (saddles_from_candidates derives it), counters (B, 2)
     f32: [#appended (== _CAPF signals possible overflow), #clusters
     dropped — always 0, the labeling has no blob-size cap])."""
-    check_raw(raw_p, channels, u16, "cluster_rochade_raw")
+    check_raw(raw_p, channels, u16, "cluster_rochade_raw", luma_f32)
     if hp2 != 4:
         raise ValueError("cluster_rochade_raw: the fit takes half_patch 2 (hp2=4)")
     if h * w >= 2**24:
@@ -144,7 +129,7 @@ def cluster_rochade_raw(
         raise ValueError("cluster_rochade_raw: thr must be (B,) f32")
     if raw_p.device.type == "cpu":
         return cluster_rochade_raw_plain(
-            raw_p, thr, h, w, channels, u16, sigma, hp2, move_thr
+            raw_p, thr, h, w, channels, u16, sigma, hp2, move_thr, luma_f32
         )
     require_cuda(raw_p, "cluster_rochade_raw")
     if thr.device != raw_p.device:
@@ -160,16 +145,16 @@ def cluster_rochade_raw(
     napp = torch.zeros((b,), dtype=torch.int32, device=dev)
     fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=dev)
     taps = _taps(sigma)
-    fit = _fit_struct(hp2 // 2)
+    fit = fit_struct(hp2 // 2)
     err = lib().ag_cluster_rochade_raw(
-        raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
-        thr.data_ptr(), ctypes.addressof(taps), ctypes.addressof(fit),
+        raw_p.data_ptr(), b, h_pad, w_pad, channels,
+        _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(), ctypes.addressof(taps), ctypes.addressof(fit),
         float(move_thr), hp2, blur.data_ptr(), labels.data_ptr(),
         cnt.data_ptr(), sums.data_ptr(), napp.data_ptr(), fields.data_ptr(),
         _CAPF, stream_of(raw_p),
     )
     check(err, "cluster_rochade_raw")
-    LAUNCHES["cluster_rochade_raw"] += 1
+    LAUNCHES["cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"] += 1
     counts = torch.stack(
         [torch.clamp(napp, max=_CAPF).to(torch.float32),
          torch.zeros((b,), dtype=torch.float32, device=dev)], 1,

@@ -8,8 +8,13 @@ What bounds the kernel on the H100 and what its design does about it is
 noted at the top of ``csrc/frontend.cu`` (memory: raw read + luma8 write,
 the f32 planes stay in shared memory).
 
-``pad_raw`` lays the frames out as both this kernel and the cluster
-kernel read them.
+``front_kernel_decimate`` replaces
+``pallas/frontend.py::front_kernel_decimate``, the turbo path's front
+kernel: the same luma8, plus the half-resolution f32 luma plane (2x2 mean)
+and the response minima taken at half resolution.
+
+``pad_raw`` lays the frames out as the front, cluster and refine kernels
+read them; ``pad_half`` does the same for a half-resolution luma plane.
 """
 
 from __future__ import annotations
@@ -18,16 +23,13 @@ import ctypes
 
 import torch
 
-from ..ops.frontend import gaussian_blur, gaussian_kernel, hessian_response
-from ..ops.gray import as_int32, ieee_div
+from ..ops.frontend import decimate2, gaussian_blur, gaussian_kernel, hessian_response
+from ..ops.gray import raw_luma
 from . import LAUNCHES
 from ._lib import check, lib, require_cuda, stream_of
 
 TILE_H = 64    # image rows per tile (the TPU kernel's grid step)
 STRIP_W = 64   # image columns per CUDA block
-
-# Rec.709 weights pre-divided by 255 (the reference's f32 matrix entries)
-_COEF = (0.2126 / 255.0, 0.7152 / 255.0, 0.0722 / 255.0)
 
 
 def pad_raw(img: torch.Tensor):
@@ -64,49 +66,53 @@ def pad_raw(img: torch.Tensor):
     return out.contiguous(), hgt, wid, channels, u16
 
 
-def raw_luma(raw: torch.Tensor, channels: int, u16: bool):
-    """(..., R, W*C) padded raw -> (f32 luma, u8 luma), (..., R, W), with
-    the kernel's formulas: u8 x/255; u16 x/65535 and
-    floor((x*255 + 32767)/65535); RGB the fused multiply-add chain
-    fma(b, cB, fma(g, cG, r*cR)) and integer (2126r+7152g+722b)//10000.
-    Divides are IEEE divides on every device (``ieee_div``), as the
-    kernel's ``__fdiv_rn`` and the JAX ops chain evaluate them.
-    The fused multiply-adds are evaluated in f64 and rounded once: for
-    these operands (u8 integers times f32 weights) the f64 sum is exact,
-    so this equals a hardware FMA bit for bit."""
-    if channels == 3:
-        x = raw.reshape(*raw.shape[:-1], raw.shape[-1] // 3, 3).to(torch.int32)
-        r, g, b = x[..., 0], x[..., 1], x[..., 2]
-        cr, cg, cb = (float(torch.tensor(c, dtype=torch.float32)) for c in _COEF)
-        acc = r.to(torch.float32) * cr
-        acc = (g.to(torch.float64) * cg + acc.to(torch.float64)).to(torch.float32)
-        lf = (b.to(torch.float64) * cb + acc.to(torch.float64)).to(torch.float32)
-        l8 = torch.div(2126 * r + 7152 * g + 722 * b, 10000, rounding_mode="floor")
-        return lf, l8.to(torch.uint8)
-    if u16:
-        x = as_int32(raw).to(torch.float32)
-        l8 = torch.floor(ieee_div(x * 255.0 + 32767.0, 65535.0))
-        return ieee_div(x, 65535.0), l8.to(torch.uint8)
-    return ieee_div(raw.to(torch.float32), 255.0), raw
+def _response_tile_min(lf_p: torch.Tensor, sigma: float,
+                       true_shape: tuple[int, int]) -> torch.Tensor:
+    """(B, Hp+16, Wp) f32 luma in the padded layout -> (B, Hp/64) minima of
+    the Hessian response per 64-row tile, the border of the true (h, w)
+    image and everything outside it zeroed."""
+    h, w = true_shape
+    b, rows, w_pad = lf_p.shape
+    h_pad = rows - 16
+    # blur over the whole padded plane: its clamped borders equal the
+    # reference's (the padding replicates the image's edge pixels)
+    resp = hessian_response(gaussian_blur(lf_p, sigma))[:, 8 : 8 + h_pad]
+    r = torch.arange(h_pad, device=lf_p.device)[:, None]
+    c = torch.arange(w_pad, device=lf_p.device)[None, :]
+    border = (r <= 0) | (r >= h - 1) | (c == 0) | (c >= w - 1)
+    resp = torch.where(border, torch.zeros_like(resp), resp)
+    return resp.reshape(b, h_pad // TILE_H, TILE_H * w_pad).amin(-1)
 
 
 def front_kernel_plain(raw_p: torch.Tensor, sigma: float,
                        true_shape: tuple[int, int], channels: int, u16: bool):
     """Plain PyTorch version of ``front_kernel`` (same outputs)."""
-    h, w = true_shape
-    b, rows, _ = raw_p.shape
-    h_pad = rows - 16
     lf, l8 = raw_luma(raw_p, channels, u16)
-    w_pad = lf.shape[-1]
-    # blur over the whole padded plane: its clamped borders equal the
-    # reference's (the padding replicates the image's edge pixels)
-    resp = hessian_response(gaussian_blur(lf, sigma))[:, 8 : 8 + h_pad]
-    r = torch.arange(h_pad, device=raw_p.device)[:, None]
-    c = torch.arange(w_pad, device=raw_p.device)[None, :]
-    border = (r <= 0) | (r >= h - 1) | (c == 0) | (c >= w - 1)
-    resp = torch.where(border, torch.zeros_like(resp), resp)
-    tile_min = resp.reshape(b, h_pad // TILE_H, TILE_H * w_pad).amin(-1)
-    return l8[:, 8 : 8 + h_pad].contiguous(), tile_min
+    tile_min = _response_tile_min(lf, sigma, true_shape)
+    return l8[:, 8:-8].contiguous(), tile_min
+
+
+def pad_half(half: torch.Tensor) -> torch.Tensor:
+    """(B, hh, wh) f32 half-resolution luma plane -> (B, Hhp+16, Whp) in
+    the padded layout of ``pad_raw``: 8 rows above, Hhp = ceil(hh/64)*64,
+    Whp = ceil(wh/128)*128, every element outside the plane a replica of
+    the plane's own nearest edge value."""
+    hh, wh = half.shape[1:]
+    dev = half.device
+    rows = torch.clamp(torch.arange(-8, -(-hh // TILE_H) * TILE_H + 8, device=dev), 0, hh - 1)
+    cols = torch.clamp(torch.arange(-(-wh // 128) * 128, device=dev), 0, wh - 1)
+    return half[:, rows][:, :, cols].contiguous()
+
+
+def front_kernel_decimate_plain(raw_p: torch.Tensor, sigma: float,
+                                true_shape: tuple[int, int], channels: int,
+                                u16: bool):
+    """Plain PyTorch version of ``front_kernel_decimate`` (same outputs)."""
+    h, w = true_shape
+    lf, l8 = raw_luma(raw_p, channels, u16)
+    half_p = pad_half(decimate2(lf[:, 8 : 8 + h, :w]))
+    tile_min = _response_tile_min(half_p, sigma, (h // 2, w // 2))
+    return l8[:, 8:-8].contiguous(), half_p, tile_min
 
 
 def _taps(sigma: float) -> ctypes.Array:
@@ -116,11 +122,19 @@ def _taps(sigma: float) -> ctypes.Array:
     return (ctypes.c_float * 7)(*(float(v) for v in taps))
 
 
-def check_raw(raw_p: torch.Tensor, channels: int, u16: bool, name: str):
-    """Shape/type contract shared by the front and cluster wrappers."""
+def check_raw(raw_p: torch.Tensor, channels: int, u16: bool, name: str,
+              luma_f32: bool = False):
+    """Shape/type contract shared by the kernel wrappers: a ``pad_raw``
+    array, or with ``luma_f32`` a ``pad_half`` plane (f32, one channel)."""
     if raw_p.ndim != 3 or not raw_p.is_contiguous():
         raise ValueError(f"{name}: raw_p must be a contiguous (B, Hp+16, Wp*C) array")
-    if raw_p.dtype != (torch.uint16 if u16 else torch.uint8):
+    if luma_f32:
+        if raw_p.dtype != torch.float32 or channels != 1 or u16:
+            raise TypeError(
+                f"{name}: an f32 luma plane is (B, Hp+16, Wp) float32 with "
+                f"channels=1, u16=False (got {raw_p.dtype}, channels={channels}, u16={u16})"
+            )
+    elif raw_p.dtype != (torch.uint16 if u16 else torch.uint8):
         raise TypeError(f"{name}: raw_p dtype {raw_p.dtype} does not match u16={u16}")
     h_pad = raw_p.shape[1] - 16
     if h_pad <= 0 or h_pad % TILE_H or raw_p.shape[2] % (128 * channels):
@@ -155,3 +169,48 @@ def front_kernel(raw_p: torch.Tensor, sigma: float,
     check(err, "front_kernel")
     LAUNCHES["front_kernel"] += 1
     return luma8, strip_min.amin(-1)
+
+
+def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
+                          true_shape: tuple[int, int], channels: int, u16: bool):
+    """(B, Hp+16, Wp*C) pad_raw output -> (luma8 (B, Hp, Wp) u8, half_p
+    (B, Hhp+16, Whp) f32, tile_min (B, Hhp/64) f32): the turbo front-end.
+
+    ``luma8`` is ``front_kernel``'s. ``half_p`` is the 2x2-mean decimated
+    f32 luma of the true (h, w) frame, ``half[y, x] = ((l[2y, 2x] +
+    l[2y, 2x+1]) + (l[2y+1, 2x] + l[2y+1, 2x+1])) * 0.25`` over
+    (h//2, w//2), stored in the ``pad_half`` layout: row 8 + y, column x,
+    with 8 rows above, rows up to Hhp = ceil((h//2)/64)*64 (+8) below and
+    columns up to Whp = ceil((w//2)/128)*128, all replicas of the half
+    plane's own edge values (not decimated full-resolution padding, which
+    would sit half a pixel off). It feeds ``cluster_rochade_raw(...,
+    luma_f32=True)`` and ``nms_extract_raw``. ``tile_min`` holds the
+    Hessian-response minima of the blurred half plane per 64 half rows,
+    with the half image's one-pixel border zeroed; the global minimum
+    times the response ratio is the turbo threshold."""
+    check_raw(raw_p, channels, u16, "front_kernel_decimate")
+    h, w = true_shape
+    if h < 2 or w < 2:
+        raise ValueError(f"front_kernel_decimate: a {h}x{w} frame has no half plane")
+    if raw_p.device.type == "cpu":
+        return front_kernel_decimate_plain(raw_p, sigma, true_shape, channels, u16)
+    require_cuda(raw_p, "front_kernel_decimate")
+    b, rows, _ = raw_p.shape
+    h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
+    hh_pad = -(-(h // 2) // TILE_H) * TILE_H
+    wh_pad = -(-(w // 2) // 128) * 128
+    taps = _taps(sigma)
+    dev = raw_p.device
+    luma8 = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=dev)
+    half_p = torch.empty((b, hh_pad + 16, wh_pad), dtype=torch.float32, device=dev)
+    strip_min = torch.empty(
+        (b, hh_pad // TILE_H, wh_pad // STRIP_W), dtype=torch.float32, device=dev
+    )
+    err = lib().ag_front_kernel_decimate(
+        raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
+        ctypes.addressof(taps), luma8.data_ptr(), half_p.data_ptr(),
+        hh_pad, wh_pad, strip_min.data_ptr(), stream_of(raw_p),
+    )
+    check(err, "front_kernel_decimate")
+    LAUNCHES["front_kernel_decimate"] += 1
+    return luma8, half_p, strip_min.amin(-1)

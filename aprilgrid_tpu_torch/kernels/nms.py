@@ -1,0 +1,194 @@
+"""NMS extraction kernel: the turbo path's clustering-free candidate
+extraction at half resolution.
+
+``nms_extract_raw`` replaces the JAX package's
+``pallas/nms.py::nms_extract_raw``. On a CUDA tensor it launches
+``csrc/nms.cu`` (three launches behind one wrapper: blur + masked
+response, record gate, peaks into the cell grid; the source's head notes
+what bounds it); on a CPU tensor it runs ``nms_extract_raw_plain``.
+
+The function, on the half-resolution luma plane of ``front_kernel_decimate``:
+
+1. blur (7 taps, clamped) and Hessian response; ``mask`` = response < thr
+   strictly inside the image;
+2. the ROCHADE record (``ops/rochade.py::fit_record``) at the masked
+   pixels; candidate = mask & record accepted & at least 4 pixels from
+   every image edge;
+3. peak = a candidate whose response equals the minimum over the
+   candidates of its 7x7 window ("plateau" pixel), and that no plateau
+   pixel of that window precedes in scan order;
+4. each peak's record ``[col + x0, row + y0, c3, c4, c5, row*w + col + 1]``
+   lands in its aligned 4x4 cell of a zero-filled (6, Hp/4, Wp/4) grid —
+   peaks are more than 3 pixels apart, so a cell holds at most one.
+
+``cells_to_fields`` compacts the grid to the cluster kernel's candidate
+layout. The cell grid, rather than an atomic append, keeps the overflow
+case (more peaks than the capacity) independent of thread timing.
+
+Differences from the TPU kernel, by design: only masked pixels evaluate a
+record (the TPU kernel evaluates it at every pixel); the geodesic peak
+merge (``merge`` > 0, off by default in the JAX package) is not ported and
+raises; the row-sharding arguments are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops.frontend import gaussian_blur, hessian_response
+from ..ops.rochade import fit_record, gather_patches
+from . import LAUNCHES
+from ._fit import fit_struct
+from ._lib import check, lib, require_cuda, stream_of
+from .frontend import _taps, check_raw
+
+_R = 3          # Chebyshev radius of the peak window
+_CELL = 4       # cell edge: peaks are > _R apart, so <= 1 per aligned cell
+_BIGF = 3.0e38  # masked-out response (csrc/nms.cu: BIGF)
+
+
+def _minfilt(x: torch.Tensor, fill) -> torch.Tensor:
+    """Minimum over the (2*_R+1)^2 window around every element of the
+    last two axes; elements outside the plane count as ``fill``."""
+    h, w = x.shape[-2:]
+    pad = torch.nn.functional.pad(x, (_R, _R), value=fill)
+    out = pad[..., 0:w]
+    for d in range(1, 2 * _R + 1):
+        out = torch.minimum(out, pad[..., d : d + w])
+    pad = torch.nn.functional.pad(out, (0, 0, _R, _R), value=fill)
+    out = pad[..., 0:h, :]
+    for d in range(1, 2 * _R + 1):
+        out = torch.minimum(out, pad[..., d : d + h, :])
+    return out
+
+
+def nms_peaks_plain(cand_resp: torch.Tensor) -> torch.Tensor:
+    """(..., h, w) candidate responses (``_BIGF`` where not a candidate)
+    -> bool peaks: plateau pixels (response equal to their window's
+    minimum) that no plateau pixel of their window precedes in scan
+    order."""
+    h, w = cand_resp.shape[-2:]
+    cand = cand_resp < _BIGF
+    plateau = cand & (cand_resp == _minfilt(cand_resp, _BIGF))
+    pos = torch.arange(h * w, device=cand_resp.device).reshape(h, w)
+    big = h * w
+    posm = torch.where(plateau, pos, torch.full_like(pos, big))
+    return plateau & (pos == _minfilt(posm, big))
+
+
+def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0):
+    """Plain PyTorch version of ``nms_extract_raw``."""
+    b = half_p.shape[0]
+    dev = half_p.device
+    blur = gaussian_blur(half_p[:, 8 : 8 + h, :w], sigma)
+    resp = hessian_response(blur)
+    r = torch.arange(h, device=dev)[:, None]
+    c = torch.arange(w, device=dev)[None, :]
+    inner = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1)
+    inb = (r >= hp2) & (r < h - hp2) & (c >= hp2) & (c < w - hp2)
+    mask = inner & (resp < thr[:, None, None])
+    cand_resp = torch.full_like(resp, _BIGF)
+    rec = torch.zeros((b, 5, h, w), dtype=torch.float32, device=dev)
+    for i in range(b):
+        ys, xs = torch.nonzero(mask[i] & inb, as_tuple=True)
+        x0, y0, c3, c4, c5, ok = fit_record(
+            gather_patches(blur[i], xs, ys, hp2 // 2), hp2 // 2, move_thr
+        )
+        ys, xs = ys[ok], xs[ok]
+        cand_resp[i, ys, xs] = resp[i, ys, xs]
+        rec[i][:, ys, xs] = torch.stack(
+            [xs.to(torch.float32) + x0[ok], ys.to(torch.float32) + y0[ok],
+             c3[ok], c4[ok], c5[ok]]
+        )
+    peaks = nms_peaks_plain(cand_resp)
+    cells = torch.zeros(
+        (b, 6, (half_p.shape[1] - 16) // _CELL, half_p.shape[2] // _CELL),
+        dtype=torch.float32, device=dev,
+    )
+    bi, ys, xs = torch.nonzero(peaks, as_tuple=True)
+    cells[bi, :5, ys // _CELL, xs // _CELL] = rec[bi, :, ys, xs]
+    cells[bi, 5, ys // _CELL, xs // _CELL] = (ys * w + xs + 1).to(torch.float32)
+    return cells
+
+
+def nms_extract_raw(
+    half_p: torch.Tensor,  # pad_half layout: (B, Hp+16, Wp) f32 luma
+    thr: torch.Tensor,     # (B,) f32
+    h: int,
+    w: int,
+    sigma: float = 1.5,
+    hp2: int = 4,
+    move_thr: float = 1.0,
+    merge: int = 0,
+):
+    """Dense per-cell candidate records: (B, 6, Hp/4, Wp/4) f32 with plane
+    order [x, y, c3, c4, c5, label+1]; label+1 >= 1 doubles as the
+    presence bit. ``h, w`` are the half plane's true size. Compact with
+    ``cells_to_fields``."""
+    check_raw(half_p, 1, False, "nms_extract_raw", luma_f32=True)
+    if merge != 0:
+        raise NotImplementedError(
+            "nms_extract_raw: the geodesic peak merge (merge > 0) is not "
+            "ported (ROADMAP.md queues it)"
+        )
+    if hp2 != 4:
+        raise ValueError("nms_extract_raw: the fit takes half_patch 2 (hp2=4)")
+    if h * w >= 2**24:
+        raise ValueError(
+            f"{h}x{w}: scan-order labels exceed f32's exact-integer range"
+        )
+    b = half_p.shape[0]
+    if thr.shape != (b,) or thr.dtype != torch.float32:
+        raise ValueError("nms_extract_raw: thr must be (B,) f32")
+    if half_p.device.type == "cpu":
+        return nms_extract_raw_plain(half_p, thr, h, w, sigma, hp2, move_thr)
+    require_cuda(half_p, "nms_extract_raw")
+    if thr.device != half_p.device:
+        raise ValueError("nms_extract_raw: thr must be on half_p's device")
+    dev = half_p.device
+    h_pad, w_pad = half_p.shape[1] - 16, half_p.shape[2]
+    thr = thr.contiguous()
+    blur = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
+    cand = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
+    cells = torch.zeros(
+        (b, 6, h_pad // _CELL, w_pad // _CELL), dtype=torch.float32, device=dev
+    )
+    taps = _taps(sigma)
+    fit = fit_struct(hp2 // 2)
+    err = lib().ag_nms_extract_raw(
+        half_p.data_ptr(), b, h_pad, w_pad, h, w, thr.data_ptr(),
+        ctypes.addressof(taps), ctypes.addressof(fit), float(move_thr), hp2,
+        blur.data_ptr(), cand.data_ptr(), cells.data_ptr(), stream_of(half_p),
+    )
+    check(err, "nms_extract_raw")
+    LAUNCHES["nms_extract_raw"] += 1
+    return cells
+
+
+def cells_to_fields(cells: torch.Tensor, capf: int = 1024):
+    """(B, 6, R, C) cell records -> the candidate layout of the cluster
+    kernel, (B, capf, 8) rows [x, y, k=0, c3, c4, c5, ok, label+1], and
+    the number of peaks per frame (B,) f32 for the overflow counters. The
+    first ``capf`` occupied cells are kept, in cell order;
+    ``saddles_from_candidates``'s label sort then restores scan order."""
+    b = cells.shape[0]
+    flat = cells.reshape(b, 6, -1)
+    valid = flat[:, 5] > 0.5
+    n = valid.sum(-1).to(torch.float32)
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)[:, :capf]
+    if order.shape[1] < capf:
+        # fewer cells than slots: repeat the last, a free cell (occupied
+        # cells sort first, and cell (0, 0) lies in the margin, always free)
+        order = torch.cat(
+            [order, order[:, -1:].expand(b, capf - order.shape[1])], dim=1
+        )
+    take = torch.gather(flat, 2, order[:, None, :].expand(b, 6, capf))
+    okcol = (take[:, 5] > 0.5).to(torch.float32)
+    fields = torch.stack(
+        [take[:, 0], take[:, 1], torch.zeros_like(okcol), take[:, 2],
+         take[:, 3], take[:, 4], okcol, take[:, 5]],
+        dim=-1,
+    )
+    return fields, n

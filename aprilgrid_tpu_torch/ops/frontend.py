@@ -63,3 +63,17 @@ def hessian_response(img: torch.Tensor) -> torch.Tensor:
            - v[..., 2:, 2:]) * 0.25
     resp = lxx * lyy - lxy * lxy
     return torch.nn.functional.pad(resp, (1, 1, 1, 1))
+
+
+def decimate2(luma_f: torch.Tensor) -> torch.Tensor:
+    """Exact 2x2-mean downsample over the last two axes of an f32 luma
+    plane (odd trailing row/column trimmed): the turbo mode's
+    half-resolution image. The sums are pairwise, columns first, then
+    rows, times 0.25 — the association the decimating front kernel uses,
+    so both give the same half plane bit for bit."""
+    h, w = luma_f.shape[-2:]
+    x = luma_f[..., : h // 2 * 2, : w // 2 * 2]
+    top, bot = x[..., 0::2, :], x[..., 1::2, :]
+    return (
+        (top[..., 0::2] + top[..., 1::2]) + (bot[..., 0::2] + bot[..., 1::2])
+    ) * 0.25

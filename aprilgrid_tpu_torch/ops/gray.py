@@ -6,7 +6,8 @@ sampler. Both conversions are reproduced here exactly — including the
 image crate's Rec.709 float path for f32 luma and its integer fixed-point
 path for u8 luma. The front kernel (kernels/frontend.py) converts the
 padded raw frames itself; this module is the exact reference for every
-DynamicImage mode.
+DynamicImage mode, and ``raw_luma`` states the kernels' own conversion of
+their three raw modes.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 
 # Rec.709 luma coefficients (image crate's SRGB_LUMA).
 _LUMA_R, _LUMA_G, _LUMA_B = 0.2126, 0.7152, 0.0722
+# The same weights pre-divided by 255 (the kernels' f32 matrix entries)
+_COEF = (0.2126 / 255.0, 0.7152 / 255.0, 0.0722 / 255.0)
 
 
 def as_int32(x: torch.Tensor) -> torch.Tensor:
@@ -93,3 +96,30 @@ def to_luma(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             return luma_f, _f32_to_u8(luma_f)
         raise TypeError(f"unsupported rgb dtype {img.dtype}")
     raise TypeError(f"unsupported image shape/dtype {tuple(img.shape)} {img.dtype}")
+
+
+def raw_luma(raw: torch.Tensor, channels: int, u16: bool):
+    """(..., R, W*C) raw rows of the three kernel modes (u8 gray, u16
+    gray, u8 RGB with the channels flattened into the row) -> (f32 luma,
+    u8 luma), (..., R, W), with the kernels' formulas: u8 x/255; u16 x/65535 and
+    floor((x*255 + 32767)/65535); RGB the fused multiply-add chain
+    fma(b, cB, fma(g, cG, r*cR)) and integer (2126r+7152g+722b)//10000.
+    Divides are IEEE divides on every device (``ieee_div``), as the
+    kernel's ``__fdiv_rn`` and the JAX ops chain evaluate them.
+    The fused multiply-adds are evaluated in f64 and rounded once: for
+    these operands (u8 integers times f32 weights) the f64 sum is exact,
+    so this equals a hardware FMA bit for bit."""
+    if channels == 3:
+        x = raw.reshape(*raw.shape[:-1], raw.shape[-1] // 3, 3).to(torch.int32)
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        cr, cg, cb = (float(torch.tensor(c, dtype=torch.float32)) for c in _COEF)
+        acc = r.to(torch.float32) * cr
+        acc = (g.to(torch.float64) * cg + acc.to(torch.float64)).to(torch.float32)
+        lf = (b.to(torch.float64) * cb + acc.to(torch.float64)).to(torch.float32)
+        l8 = torch.div(2126 * r + 7152 * g + 722 * b, 10000, rounding_mode="floor")
+        return lf, l8.to(torch.uint8)
+    if u16:
+        x = as_int32(raw).to(torch.float32)
+        l8 = torch.floor(ieee_div(x * 255.0 + 32767.0, 65535.0))
+        return ieee_div(x, 65535.0), l8.to(torch.uint8)
+    return ieee_div(raw.to(torch.float32), 255.0), raw

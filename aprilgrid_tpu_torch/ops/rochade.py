@@ -25,7 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .frontend import gaussian_kernel
 from .geometry import rust_round
+from .gray import raw_luma
 
 
 class Saddles(NamedTuple):
@@ -214,6 +216,65 @@ def rochade_refine(
     ) & centers_valid
     patch = gather_patches(blur, rx, ry, half_patch)
     return refine_patches(patch, rx, ry, in_bounds, half_patch, move_threshold)
+
+
+def refine_at_raw(
+    img: torch.Tensor,            # (B, H, W) u8/u16 or (B, H, W, 3) u8 raw frames
+    centers: torch.Tensor,        # (B, K, 2) f32 full-resolution positions
+    centers_valid: torch.Tensor,  # (B, K) bool
+    sigma: float = 1.5,
+    half_patch: int = 2,
+    move_threshold: float = 1.0,
+) -> Saddles:
+    """ROCHADE refine at sparse positions straight from the raw frames —
+    the plain version of the sparse refine kernel.
+
+    The turbo mode re-refines its half-resolution survivors at full
+    resolution without a full-resolution blur plane: per candidate a 15x15
+    raw patch around the rounded centre is gathered with indices clamped
+    to the image (which reproduces the blur's edge replication in both
+    passes), converted to f32 luma with the kernels' formulas
+    (``ops/gray.py::raw_luma``) and blurred on the patch, horizontal pass
+    first, in the tap order of ``ops/frontend.py::gaussian_blur``; the
+    9x9 result is the fit's support (``fit_record``). Equal to refining
+    on the blurred luma of the whole frame."""
+    taps = [float(v) for v in gaussian_kernel(sigma)]
+    radius = (len(taps) - 1) // 2
+    hp2 = 2 * half_patch
+    size9 = 2 * hp2 + 1
+    side = size9 + 2 * radius  # raw patch side (15)
+    b, h, w = img.shape[:3]
+    channels = img.shape[3] if img.ndim == 4 else 1
+    u16 = img.dtype == torch.uint16
+    dev = img.device
+
+    rx = rust_round(centers[..., 0]).to(torch.int64)
+    ry = rust_round(centers[..., 1]).to(torch.int64)
+    in_bounds = (
+        (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
+    ) & centers_valid
+    # an out-of-image centre is gated above; its reads must be in range
+    rx = torch.clamp(rx, 0, w - 1)
+    ry = torch.clamp(ry, 0, h - 1)
+
+    off = torch.arange(side, device=dev) - hp2 - radius
+    ys = torch.clamp(ry[..., None] + off, 0, h - 1)  # (B, K, side)
+    xs = torch.clamp(rx[..., None] + off, 0, w - 1)
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    # index through the int16 view: u16 indexing is not served everywhere
+    src = img.view(torch.int16) if u16 else img
+    patch = src[bi, ys[..., :, None], xs[..., None, :]]  # (B, K, side, side[, 3])
+    if u16:
+        patch = patch.view(torch.uint16)
+    luma, _ = raw_luma(patch.reshape(*patch.shape[:3], side * channels), channels, u16)
+
+    temp = torch.zeros(luma.shape[:3] + (size9,), dtype=torch.float32, device=dev)
+    for i, kw in enumerate(taps):
+        temp = temp + luma[..., i : i + size9] * kw
+    blur9 = torch.zeros(luma.shape[:2] + (size9, size9), dtype=torch.float32, device=dev)
+    for i, kw in enumerate(taps):
+        blur9 = blur9 + temp[..., i : i + size9, :] * kw
+    return refine_patches(blur9, rx, ry, in_bounds, half_patch, move_threshold)
 
 
 def filter_and_compact(

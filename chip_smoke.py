@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — ``TagDetector(device="cuda").detect_batch``,
-the exact hybrid detector — on the bundled golden images at full
-resolution, after building every kernel from ``aprilgrid_tpu_torch/csrc``
-and holding each against its plain PyTorch version on the card.
+Drives the port's paths — ``TagDetector(device="cuda").detect_batch``, the
+exact hybrid detector and its turbo mode (``decimate=True``, both
+extraction variants) — on the bundled golden images at full resolution,
+after building every kernel from ``aprilgrid_tpu_torch/csrc`` and holding
+each against its plain PyTorch version on the card.
 
 Phases (a failing phase raises, so the script exits non-zero):
 
@@ -13,12 +14,20 @@ Phases (a failing phase raises, so the script exits non-zero):
 2. kernels vs plain versions on CUDA tensors at main-path shapes
    (every golden image at batch 32, the end-to-end chunk: EuRoC u8 gray,
    TUM_VI u16 gray, iphone and two_boards RGB; the hamming scan at 32
-   frames x 96 quads x 4 rotations) with their times;
+   frames x 96 quads x 4 rotations) with their times; the turbo path's
+   kernels (decimating front kernel, the cluster kernel's f32-luma mode,
+   NMS extraction, sparse refine) on iphone and two_boards at batch 32
+   and on EuRoC and TUM_VI at batch 8, and the NMS tie-break on a plane
+   with planted equal responses;
 3. end to end: ``detect_batch`` at batch 32 on EuRoC, TUM_VI, iphone and
    two_boards — golden tag counts on every frame, ID sets and corners
-   against the port's own CPU run, frames/s timed with CUDA events;
-4. one JSON line with each kernel's launches in phase 3, its error against
-   the plain version, its time, the plain version's time and its bound.
+   against the port's own CPU run, frames/s timed with CUDA events; then
+   the turbo mode on iphone and two_boards for the NMS and the drain
+   variant, held the same way, and ``decimate="auto"`` on EuRoC against
+   the exact result; the front-end's share of a chunk's time;
+4. one JSON line with each kernel's launches in phase 3 (counted per
+   path: zeroed before it, read after it), its error against the plain
+   version, its time, the plain version's time and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -41,6 +51,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 GOLDEN = {"EuRoC": 36, "TUM_VI": 36, "iphone": 66, "two_boards": 72}
+TURBO = ("iphone", "two_boards")   # the turbo mode's frames: >= 2 MP
+# per fitted candidate: 25 x 25 cone taps + 5 x 5 x 5 + 5 x 5 fit taps, x2
+# (multiply + add), plus ~30 for the solve and the gates
+FIT_OPS = 2 * (625 + 125 + 25) + 30
+# per pixel of a blurred plane: 2 x 7-tap blur (28), Hessian (13), min or
+# compare (1)
+STENCIL_OPS = 42.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
 # operations/s; the bound of a kernel is the larger of its two times.
@@ -150,7 +167,9 @@ def phase_build() -> str:
 
 def phase_kernels(card: str, batch: int) -> dict:
     """Each kernel against its plain version on the same CUDA tensors, on
-    every golden image at the main path's chunk size."""
+    every golden image at the main path's chunk size; the turbo path's
+    kernels at that size on its own frames (``TURBO``) and at a quarter of
+    it on the other raw modes."""
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
@@ -219,8 +238,7 @@ def phase_kernels(card: str, batch: int) -> dict:
         roots = int((mask & (lab == torch.arange(h * w, device=dev).reshape(h, w))).sum())
         hp, wp = raw_p.shape[1] - 16, raw_p.shape[2] // ch
         px = batch * hp * wp
-        # per pixel: luma (<= 5), 2 x 7-tap blur (28), Hessian (13), min (1)
-        dense_ops = 47.0 * px
+        dense_ops = (5.0 + STENCIL_OPS) * px   # luma (<= 5) + the stencil
         raw_bytes = raw_p.numel() * raw_p.element_size()
         rec[name] = {
             "front": dict(
@@ -231,14 +249,14 @@ def phase_kernels(card: str, batch: int) -> dict:
             "cluster": dict(
                 err=cl_err, ms=_ms(lambda: cluster_rochade_raw(*cargs), 10),
                 plain_ms=_ms(lambda: cluster_rochade_raw_plain(*cargs), 1),
-                # the fit: 25 x 25 cone taps + 5 x 5 x 5 + 5 x 5 fit taps,
-                # x2 (multiply + add), plus ~30 for the solve and gates
                 bound=_bound_ms(
                     raw_bytes + thr.numel() * 4 + f.numel() * 4 + c.numel() * 4,
-                    dense_ops + batch * roots * (2 * (625 + 125 + 25) + 30),
+                    dense_ops + batch * roots * FIT_OPS,
                 ),
             ),
         }
+        turbo_kernels(name, frames if name in TURBO else frames[: batch // 4], rec)
+    nms_tie_break_check()
 
     spec = get_family("t36h11")
     codes = spec.code_bits_tensor(dev)
@@ -273,47 +291,278 @@ def phase_kernels(card: str, batch: int) -> dict:
     return rec
 
 
+def turbo_kernels(name: str, frames, rec: dict) -> None:
+    """The turbo path's kernels against their plain versions on one image's
+    frames (already on the card), chained as the path chains them."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        _CAPF,
+        cluster_rochade_raw,
+        cluster_rochade_raw_plain,
+        saddles_from_candidates,
+        sort_candidates,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel_decimate,
+        front_kernel_decimate_plain,
+        pad_raw,
+    )
+    from aprilgrid_tpu_torch.kernels.nms import (
+        cells_to_fields,
+        nms_extract_raw,
+        nms_extract_raw_plain,
+    )
+    from aprilgrid_tpu_torch.kernels.refine import (
+        sparse_refine_raw,
+        sparse_refine_raw_plain,
+    )
+    from aprilgrid_tpu_torch.ops.cluster import label_components
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+    from aprilgrid_tpu_torch.ops.rochade import filter_and_compact
+
+    dev = frames.device
+    sigma = CONSTANTS.blur_sigma
+    batch = frames.shape[0]
+    raw_p, h, w, ch, u16 = pad_raw(frames)
+    hh, wh = h // 2, w // 2
+    args = (raw_p, sigma, (h, w), ch, u16)
+
+    l8, half_p, tmin = front_kernel_decimate(*args)
+    pl8, phalf, ptmin = front_kernel_decimate_plain(*args)
+    torch.cuda.synchronize()
+    fd_err = max((half_p - phalf).abs().max().item(), (tmin - ptmin).abs().max().item())
+    if not (torch.equal(l8, pl8) and torch.equal(half_p, phalf) and torch.equal(tmin, ptmin)):
+        raise AssertionError(
+            f"front_kernel_decimate {name}: luma8 diff "
+            f"{(l8.int() - pl8.int()).abs().max().item()}, half plane / tile-min diff {fd_err}"
+        )
+
+    thr = tmin.amin(-1) * CONSTANTS.response_threshold_ratio
+    cargs = (half_p, thr, hh, wh, 1, False, sigma, 4, 1.0, True)
+    f, c = cluster_rochade_raw(*cargs)
+    pf, pc = cluster_rochade_raw_plain(*cargs)
+    torch.cuda.synchronize()
+    (sf, _), (spf, _) = sort_candidates(f), sort_candidates(pf)
+    cl_err = (sf[..., :6] - spf[..., :6]).abs().max().item()
+    if not (torch.equal(c, pc) and torch.equal(sf[..., 6:8], spf[..., 6:8])) or cl_err > 0:
+        raise AssertionError(
+            f"cluster[luma_f32] {name}: counts {c[0].tolist()} vs {pc[0].tolist()}, "
+            f"record diff {cl_err}"
+        )
+
+    nargs = (half_p, thr, hh, wh, sigma, 4, 1.0)
+    cells = nms_extract_raw(*nargs)
+    pcells = nms_extract_raw_plain(*nargs)
+    torch.cuda.synchronize()
+    nms_err = (cells - pcells).abs().max().item()
+    if not torch.equal(cells, pcells):
+        raise AssertionError(
+            f"nms_extract_raw {name}: {int((cells[:, 5] > 0.5).sum())} vs "
+            f"{int((pcells[:, 5] > 0.5).sum())} peaks, max |diff| {nms_err}"
+        )
+
+    fields, n_peaks = cells_to_fields(cells, _CAPF)
+    half_s = filter_and_compact(
+        saddles_from_candidates(fields), DEFAULT_CAPACITIES.max_saddles,
+        CONSTANTS.saddle_k_ratio, DEFAULT_PARAMS.min_saddle_angle,
+        DEFAULT_PARAMS.max_saddle_angle,
+    )
+    centers, valid = half_s.p * 2.0 + 0.5, half_s.valid
+    rargs = (raw_p, centers, valid, h, w, ch, u16, sigma, 4, 1.0)
+    rs = sparse_refine_raw(*rargs)
+    prs = sparse_refine_raw_plain(*rargs)
+    torch.cuda.synchronize()
+    rf_err = max((getattr(rs, k) - getattr(prs, k))[valid].abs().max().item()
+                 for k in ("p", "k", "theta", "phi"))
+    if not torch.equal(rs.valid, prs.valid) or rf_err > 0:
+        raise AssertionError(
+            f"sparse_refine_raw {name}: valid {int(rs.valid.sum())} vs "
+            f"{int(prs.valid.sum())}, max |diff| over processed slots {rf_err}"
+        )
+    print(f"kernels {name} {tuple(frames.shape[1:])} b{batch} turbo: front_decimate, "
+          f"cluster[luma_f32] ({int(c[0, 0].item())} accepted/frame), nms "
+          f"({int(n_peaks[0].item())} peaks/frame), refine ({int(valid[0].sum())} slots, "
+          f"{int(rs.valid[0].sum())} accepted/frame) bit-equal to their plain versions",
+          flush=True)
+
+    # work this run's data needs (frame 0; the frames are copies)
+    blur = gaussian_blur(half_p[:1, 8 : 8 + hh, :wh], sigma)
+    resp = hessian_response(blur)[0]
+    rr = torch.arange(hh, device=dev)[:, None]
+    cc = torch.arange(wh, device=dev)[None, :]
+    mask = (rr > 0) & (rr < hh - 1) & (cc > 0) & (cc < wh - 1) & (resp < thr[0])
+    lab = label_components(mask)
+    roots = int((mask & (lab == torch.arange(hh * wh, device=dev).reshape(hh, wh))).sum())
+    fitted = int((mask[4:-4, 4:-4]).sum())       # masked pixels inside the margin
+    slots = int(valid.sum())                     # refine slots, whole batch
+    hpx = batch * (half_p.shape[1] - 16) * half_p.shape[2]
+    px = batch * (raw_p.shape[1] - 16) * (raw_p.shape[2] // ch)
+    nbytes = lambda *ts: float(sum(t.numel() * t.element_size() for t in ts))  # noqa: E731
+    rec[name].update({
+        "front_decimate": dict(
+            err=fd_err, ms=_ms(lambda: front_kernel_decimate(*args), 20),
+            plain_ms=_ms(lambda: front_kernel_decimate_plain(*args), 2),
+            # per pixel: both lumas (<= 10) and its share of the mean (1)
+            bound=_bound_ms(nbytes(raw_p, l8, half_p, tmin), 11.0 * px + STENCIL_OPS * hpx),
+        ),
+        "cluster_f32": dict(
+            err=cl_err, ms=_ms(lambda: cluster_rochade_raw(*cargs), 10),
+            plain_ms=_ms(lambda: cluster_rochade_raw_plain(*cargs), 1),
+            bound=_bound_ms(nbytes(half_p, thr, f, c),
+                            STENCIL_OPS * hpx + batch * roots * FIT_OPS),
+        ),
+        "nms": dict(
+            err=nms_err, ms=_ms(lambda: nms_extract_raw(*nargs), 10),
+            plain_ms=_ms(lambda: nms_extract_raw_plain(*nargs), 1),
+            # a fit per masked pixel inside the margin, 49 compares per pass
+            # of the peak window
+            bound=_bound_ms(nbytes(half_p, thr, cells),
+                            STENCIL_OPS * hpx + batch * fitted * (FIT_OPS + 98)),
+        ),
+        "refine": dict(
+            err=rf_err, ms=_ms(lambda: sparse_refine_raw(*rargs), 20),
+            plain_ms=_ms(lambda: sparse_refine_raw_plain(*rargs), 2),
+            # per slot: a 15 x 15 raw patch read, luma (5 per pixel), the two
+            # blur passes (135 + 81 outputs x 14) and the fit; 32 bytes out
+            bound=_bound_ms(
+                slots * 225.0 * ch * raw_p.element_size() + nbytes(centers, valid)
+                + batch * centers.shape[1] * 32.0,
+                slots * (225 * 5 + 216 * 14 + FIT_OPS),
+            ),
+        ),
+    })
+
+
+def nms_tie_break_check() -> None:
+    """The NMS kernel on a plane with planted equal responses: a 3-pixel
+    checkerboard maps onto itself under shifts by (3, +-3), so pixels 3
+    apart tie exactly, in chains down the plane; the kernel must keep the
+    plain version's peaks (the scan-first plateau pixel of each window)."""
+    import torch
+
+    from aprilgrid_tpu_torch.kernels.frontend import _response_tile_min, pad_half
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
+
+    h, w = 96, 128
+    r = torch.arange(h, device="cuda")[:, None]
+    c = torch.arange(w, device="cuda")[None, :]
+    plane = (((r // 3 + c // 3) % 2).to(torch.float32) * 0.6 + 0.2)[None]
+    half_p = pad_half(plane)
+    thr = _response_tile_min(half_p, 1.5, (h, w)).amin(-1) * 0.05
+    cells = nms_extract_raw(half_p, thr, h, w)
+    pcells = nms_extract_raw_plain(half_p, thr, h, w)
+    torch.cuda.synchronize()
+    n = int((cells[:, 5] > 0.5).sum())
+    if not torch.equal(cells, pcells) or n != 20:
+        raise AssertionError(
+            f"nms tie-break: kernel {n} peaks, plain "
+            f"{int((pcells[:, 5] > 0.5).sum())} (20 expected), max |diff| "
+            f"{(cells - pcells).abs().max().item()}"
+        )
+    print("kernels nms_extract_raw tie-break plane 96x128: 20 peaks, = plain", flush=True)
+
+
+def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str) -> None:
+    """One measured ``detect_batch`` on ``batch`` copies of ``img``: golden
+    count on every frame, ID set equal to ``ref``'s, corners within 1e-3 px
+    of it; prints the time."""
+    import torch
+
+    frames = np.stack([img] * batch)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    res = det.detect_batch(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    err = 0.0
+    for i, tags in enumerate(res):
+        if len(tags) != GOLDEN[name]:
+            raise AssertionError(f"{label} {name} frame {i}: {len(tags)} tags, golden {GOLDEN[name]}")
+        if set(tags) != set(ref):
+            raise AssertionError(f"{label} {name} frame {i}: ID set differs from the CPU run")
+        err = max(err, max(
+            float(np.abs(np.asarray(tags[t]) - np.asarray(ref[t])).max()) for t in tags
+        ))
+    if err > 1e-3:
+        raise AssertionError(f"{label} {name}: corners {err} px from the CPU run")
+    print(f"e2e {label} {name} {img.shape} b{batch}: {GOLDEN[name]} tags on every frame, "
+          f"= CPU run (max corner diff {err:.2e} px); {ms:.2f} ms, "
+          f"{batch / ms * 1e3:.1f} frames/s [{card}]", flush=True)
+
+
 def phase_end_to_end(card: str, batch: int) -> dict:
-    """detect_batch on the golden images on the card; returns the launch
-    counts of the measured runs."""
+    """detect_batch on the golden images on the card, the exact path then
+    the turbo path; returns each kernel's launch count in the measured
+    runs of its own path (the counts are zeroed before a path and read
+    after it)."""
     import torch
 
     from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
     from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.pipeline import frontend_packed
 
+    imgs = {n: read_png(DATA / f"{n}.png") for n in GOLDEN}
+
+    # -- exact path
     gpu = TagDetector("t36h11", device="cuda")
     cpu = TagDetector("t36h11", device="cpu")
-    imgs = {n: read_png(DATA / f"{n}.png") for n in GOLDEN}
     refs = {n: cpu.detect(img) for n, img in imgs.items()}
     for n, img in imgs.items():
         gpu.detect_batch(np.stack([img] * batch))  # warm-up (allocator, build)
     torch.cuda.synchronize()
     reset_launches()
     for n, img in imgs.items():
-        frames = np.stack([img] * batch)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        res = gpu.detect_batch(frames)
-        t1.record()
-        torch.cuda.synchronize()
-        ms = t0.elapsed_time(t1)
-        ref = refs[n]
-        for i, tags in enumerate(res):
-            if len(tags) != GOLDEN[n]:
-                raise AssertionError(f"{n} frame {i}: {len(tags)} tags, golden {GOLDEN[n]}")
-            if set(tags) != set(ref):
-                raise AssertionError(f"{n} frame {i}: ID set differs from the CPU run")
-            err = max(
-                float(np.abs(np.asarray(tags[t]) - np.asarray(ref[t])).max())
-                for t in tags
-            )
-            if err > 1e-3:
-                raise AssertionError(f"{n} frame {i}: corners {err} px from the CPU run")
-        print(f"e2e {n} {imgs[n].shape} b{batch}: {GOLDEN[n]} tags on every frame, "
-              f"= CPU run (max corner diff {err:.2e} px); {ms:.2f} ms, "
-              f"{batch / ms * 1e3:.1f} frames/s [{card}]", flush=True)
-    return dict(LAUNCHES)
+        _held_run(gpu, n, img, refs[n], batch, card, "exact")
+    launches = {k: LAUNCHES[k] for k in ("front_kernel", "cluster_rochade_raw", "hamming_scan")}
+
+    # -- turbo path, both extraction variants (AG_TURBO_NMS is the policy
+    # knob the facade reads)
+    tgpu = TagDetector("t36h11", device="cuda", decimate=True)
+    tcpu = TagDetector("t36h11", device="cpu", decimate=True)
+    trefs = {}
+    for variant, label in (("1", "turbo-nms"), ("0", "turbo-drain")):
+        os.environ["AG_TURBO_NMS"] = variant
+        for n in TURBO:
+            trefs[label, n] = tcpu.detect(imgs[n])
+            tgpu.detect_batch(np.stack([imgs[n]] * batch))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    for variant, label in (("1", "turbo-nms"), ("0", "turbo-drain")):
+        os.environ["AG_TURBO_NMS"] = variant
+        for n in TURBO:
+            _held_run(tgpu, n, imgs[n], trefs[label, n], batch, card, label)
+    del os.environ["AG_TURBO_NMS"]
+    for k in ("front_kernel_decimate", "cluster_rochade_raw[luma_f32]",
+              "nms_extract_raw", "sparse_refine_raw"):
+        launches[k] = LAUNCHES[k]
+    turbo_hamming = LAUNCHES["hamming_scan"]
+
+    # decimate="auto" leaves a frame under 2 MP to the exact path
+    auto = TagDetector("t36h11", device="cuda", decimate="auto")
+    if auto.detect(imgs["EuRoC"]) != gpu.detect(imgs["EuRoC"]):
+        raise AssertionError('decimate="auto" on EuRoC differs from the exact path')
+    print('e2e decimate="auto" on EuRoC (0.36 MP) = the exact path', flush=True)
+    print(f"launches exact path {launches['front_kernel']}/"
+          f"{launches['cluster_rochade_raw']}/{launches['hamming_scan']} "
+          f"(front/cluster/hamming); turbo path {launches['front_kernel_decimate']}/"
+          f"{launches['nms_extract_raw']}/{launches['cluster_rochade_raw[luma_f32]']}/"
+          f"{launches['sparse_refine_raw']}/{turbo_hamming} "
+          "(front_decimate/nms/cluster[luma_f32]/refine/hamming)", flush=True)
+
+    # the front-end's share of a chunk: device time of frontend_packed alone
+    frames = torch.from_numpy(np.stack([imgs["two_boards"]] * batch)).cuda()
+    for label, dec, nms in (("exact", False, None), ("turbo-nms", True, True),
+                            ("turbo-drain", True, False)):
+        ms = _ms(lambda: frontend_packed(frames, DEFAULT_PARAMS, CONSTANTS,
+                                         DEFAULT_CAPACITIES, dec, nms), 5)
+        print(f"front-end only {label} two_boards b{batch}: {ms:.3f} ms [{card}]",
+              flush=True)
+    return launches
 
 
 def main() -> int:
@@ -332,24 +581,39 @@ def main() -> int:
         return 0
     launches = phase_end_to_end(card, batch=32)
     tb = rec["two_boards"]
+    csrc = "aprilgrid_tpu_torch/csrc/"
+    jp = "aprilgrid_tpu/pallas/"
+
+    def worst(key, names):
+        return max(rec[n][key]["err"] for n in names)
+
+    # (name = launch counter, source, replaces, record at two_boards b32, error)
     rows = [
-        ("front_kernel", "frontend.cu", "aprilgrid_tpu/pallas/frontend.py:357",
-         tb["front"], max(rec[n]["front"]["err"] for n in GOLDEN)),
-        ("cluster_rochade_raw", "cluster.cu", "aprilgrid_tpu/pallas/cluster.py:933",
-         tb["cluster"], max(rec[n]["cluster"]["err"] for n in GOLDEN)),
-        ("hamming_scan", "decode.cu", "aprilgrid_tpu/pallas/decode.py:49",
+        ("front_kernel", "frontend.cu", "frontend.py:357",
+         tb["front"], worst("front", GOLDEN)),
+        ("cluster_rochade_raw", "cluster.cu", "cluster.py:933",
+         tb["cluster"], worst("cluster", GOLDEN)),
+        ("hamming_scan", "decode.cu", "decode.py:49",
          rec["hamming"], 0.0),
+        ("front_kernel_decimate", "frontend.cu",
+         "frontend.py:703", tb["front_decimate"], worst("front_decimate", GOLDEN)),
+        ("cluster_rochade_raw[luma_f32]", "cluster.cu",
+         "cluster.py:933", tb["cluster_f32"], worst("cluster_f32", GOLDEN)),
+        ("nms_extract_raw", "nms.cu", "nms.py:305",
+         tb["nms"], worst("nms", GOLDEN)),
+        ("sparse_refine_raw", "refine.cu", "refine.py:254",
+         tb["refine"], worst("refine", GOLDEN)),
     ]
     kernels = []
     for name, src, replaces, r, err in rows:
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+            raise AssertionError(f"{name} was not launched on its path")
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"aprilgrid_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": jp + replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

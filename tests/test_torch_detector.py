@@ -1,5 +1,5 @@
-"""The PyTorch port's TagDetector (exact hybrid mode, plain versions on the
-CPU) held against the JAX TagDetector and the NumPy oracle: the oracle's
+"""The PyTorch port's TagDetector (exact hybrid mode; the turbo mode is in
+test_torch_decimate.py; plain versions on the CPU) held against the JAX TagDetector and the NumPy oracle: the oracle's
 tag-ID sets with corners < 0.1 px from it, <= 1e-3 px from the JAX
 detector, and the golden counts."""
 
@@ -95,8 +95,9 @@ def test_warn_counters(col):
         tdetector._warn_counters(cnts)
 
 
-@pytest.mark.parametrize("kw", [{"mode": "xla"}, {"decimate": True},
-                                {"decimate": "auto"}])
+@pytest.mark.parametrize("kw", [{"mode": "xla"},
+                                {"mode": "xla", "decimate": True},
+                                {"mode": "xla", "decimate": "auto"}])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TagDetector(device="cpu", **kw)

@@ -20,7 +20,9 @@ from aprilgrid_tpu_torch.convert import family_from_numpy, params_from_dict
 from aprilgrid_tpu_torch.families import TagFamily, get_family
 from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade_raw
 from aprilgrid_tpu_torch.kernels.decode import hamming_scan
-from aprilgrid_tpu_torch.kernels.frontend import front_kernel
+from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate
+from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw
+from aprilgrid_tpu_torch.kernels.refine import sparse_refine_raw
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "aprilgrid_tpu_torch"
@@ -29,7 +31,8 @@ PKG = ROOT / "aprilgrid_tpu_torch"
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, aprilgrid_tpu_torch, aprilgrid_tpu_torch.detector, "
-        "aprilgrid_tpu_torch.convert\n"
+        "aprilgrid_tpu_torch.convert, aprilgrid_tpu_torch.kernels.nms, "
+        "aprilgrid_tpu_torch.kernels.refine, aprilgrid_tpu_torch.kernels._fit\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
@@ -41,7 +44,7 @@ def test_import_pulls_in_no_jax():
 
 def test_no_source_names_jax_or_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
-    assert len(files) > 15
+    assert len(files) > 20
     for p in files:
         text = p.read_text()
         assert not re.search(r"\bjax\b", text), p
@@ -54,7 +57,8 @@ def test_detector_without_gpu_raises(monkeypatch):
         TagDetector()
 
 
-@pytest.mark.parametrize("name", ["front", "cluster", "hamming"])
+@pytest.mark.parametrize("name", ["front", "cluster", "hamming", "front_decimate",
+                                  "cluster_f32", "nms", "refine"])
 def test_wrappers_never_fall_back(name):
     """A tensor on a device the wrapper does not serve is an error, not a
     quiet plain run."""
@@ -66,6 +70,21 @@ def test_wrappers_never_fall_back(name):
         raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
         thr = torch.empty((1,), dtype=torch.float32, device=meta)
         call = lambda: cluster_rochade_raw(raw, thr, 64, 128)  # noqa: E731
+    elif name == "front_decimate":
+        raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
+        call = lambda: front_kernel_decimate(raw, 1.5, (64, 128), 1, False)  # noqa: E731
+    elif name in ("cluster_f32", "nms"):
+        half = torch.empty((1, 80, 128), dtype=torch.float32, device=meta)
+        thr = torch.empty((1,), dtype=torch.float32, device=meta)
+        if name == "nms":
+            call = lambda: nms_extract_raw(half, thr, 32, 64)  # noqa: E731
+        else:
+            call = lambda: cluster_rochade_raw(half, thr, 32, 64, luma_f32=True)  # noqa: E731
+    elif name == "refine":
+        raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
+        centers = torch.empty((1, 8, 2), dtype=torch.float32, device=meta)
+        valid = torch.empty((1, 8), dtype=torch.bool, device=meta)
+        call = lambda: sparse_refine_raw(raw, centers, valid, 64, 128)  # noqa: E731
     else:
         rots = torch.empty((1, 8, 36), device=meta)
         codes = torch.empty((5, 36), device=meta)
