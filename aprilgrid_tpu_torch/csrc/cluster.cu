@@ -34,6 +34,13 @@
 // kernel's turbo-only blob pre-filter and its 160-row window shorten its
 // serial root drain and have no counterpart here.
 //
+// ag_cluster_rochade (replacing pallas/cluster.py::cluster_rochade, the
+// blur-fed twin) takes the padded f32 blur plane itself — the front
+// kernel's blur output, or fused_frontend's: launch (a) is then
+// mask_kernel, one thread per pixel evaluating the Hessian response on the
+// plane in device memory and seeding the labels; (b)-(d) read that plane.
+// The plane has no margin rows, so pixel (r, c) sits at r * wp + c.
+//
 // Bound on the H100: memory. The dense part (a) reads the raw frame and
 // writes the blur plane and the label plane (9 bytes per pixel for u8
 // gray); (b)-(d) read the label plane once each and touch only the sparse
@@ -69,6 +76,27 @@ blur_mask_kernel(const void* raw, int hp, int wp, int channels, int mode,
       sums[2 * (fbase + i)] = 0ull;
       sums[2 * (fbase + i) + 1] = 0ull;
     }
+  }
+}
+
+// Launch (a) of the blur-fed form: the mask from a (frames, hp, wp) blur
+// plane. Inside the image's one-pixel border all eight neighbours lie in
+// the plane.
+__global__ void mask_kernel(const float* blur, int hp, int wp, int h, int w,
+                            const float* thr, int* labels, int* cnt,
+                            unsigned long long* sums, long long total) {
+  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const long long fpix = (long long)hp * wp;
+  const int i = (int)(g % fpix);
+  const int r = i / wp, c = i % wp;
+  bool m = r > 0 && r < h - 1 && c > 0 && c < w - 1 &&
+           hessian_ptr(blur + g, wp) < thr[g / fpix];
+  labels[g] = m ? i : -1;
+  if (m) {
+    cnt[g] = 0;
+    sums[2 * g] = 0ull;
+    sums[2 * g + 1] = 0ull;
   }
 }
 
@@ -163,6 +191,26 @@ __global__ void record_kernel(const int* labels, const int* cnt,
   row[7] = (float)((i / wp) * w + (i % wp) + 1);
 }
 
+// Launches (b)-(d) over labels seeded by launch (a) and the blur plane it
+// wrote or was given.
+int launch_components(const float* blur, int b, int hp, int wp, int h, int w,
+                      const FitTaps& fit, float move_thr, int hp2, int* labels,
+                      int* cnt, unsigned long long* sums, int* napp,
+                      float* fields, int capf, cudaStream_t st) {
+  const long long total = (long long)b * hp * wp;
+  const unsigned pgrid = (unsigned)((total + THREADS - 1) / THREADS);
+  unite_kernel<<<pgrid, THREADS, 0, st>>>(labels, hp, wp, total);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stats_kernel<<<pgrid, THREADS, 0, st>>>(labels, cnt, sums, hp, wp, total);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  record_kernel<<<pgrid, THREADS, 0, st>>>(labels, cnt, sums, blur, hp, wp, h,
+                                           w, hp2, fit, move_thr, napp, fields,
+                                           capf, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // raw: (b, hp + 16, wp * channels) u8 (mode 0), u16 (mode 1) or f32 luma
@@ -178,26 +226,34 @@ extern "C" int ag_cluster_rochade_raw(
   cudaStream_t st = (cudaStream_t)stream;
   ag::Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
-  const ag::FitTaps fit = *(const ag::FitTaps*)fit_taps;
   dim3 tgrid(wp / ag::STRIP_W, hp / ag::TILE_H, b);
   blur_mask_kernel<<<tgrid, ag::THREADS, 0, st>>>(
       raw, hp, wp, channels, mode, h, w, taps, (const float*)thr,
       (float*)blur, (int*)labels, (int*)cnt, (unsigned long long*)sums);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  return launch_components((const float*)blur, b, hp, wp, h, w,
+                           *(const ag::FitTaps*)fit_taps, move_thr, hp2,
+                           (int*)labels, (int*)cnt, (unsigned long long*)sums,
+                           (int*)napp, (float*)fields, capf, st);
+}
+
+// blur: (b, hp, wp) f32 padded blur plane (input); the rest as above.
+// Returns the first launch error, or 0.
+extern "C" int ag_cluster_rochade(
+    const void* blur, int b, int hp, int wp, int h, int w, const void* thr,
+    const void* fit_taps, float move_thr, int hp2, void* labels, void* cnt,
+    void* sums, void* napp, void* fields, int capf, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   const long long total = (long long)b * hp * wp;
   const unsigned pgrid = (unsigned)((total + ag::THREADS - 1) / ag::THREADS);
-  unite_kernel<<<pgrid, ag::THREADS, 0, st>>>((int*)labels, hp, wp, total);
-  e = cudaGetLastError();
+  mask_kernel<<<pgrid, ag::THREADS, 0, st>>>(
+      (const float*)blur, hp, wp, h, w, (const float*)thr, (int*)labels,
+      (int*)cnt, (unsigned long long*)sums, total);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  stats_kernel<<<pgrid, ag::THREADS, 0, st>>>((int*)labels, (int*)cnt,
-                                          (unsigned long long*)sums, hp, wp,
-                                          total);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  record_kernel<<<pgrid, ag::THREADS, 0, st>>>(
-      (const int*)labels, (const int*)cnt, (const unsigned long long*)sums,
-      (const float*)blur, hp, wp, h, w, hp2, fit, move_thr, (int*)napp,
-      (float*)fields, capf, total);
-  return (int)cudaGetLastError();
+  return launch_components((const float*)blur, b, hp, wp, h, w,
+                           *(const ag::FitTaps*)fit_taps, move_thr, hp2,
+                           (int*)labels, (int*)cnt, (unsigned long long*)sums,
+                           (int*)napp, (float*)fields, capf, st);
 }

@@ -26,6 +26,27 @@
 // luma8 write and the half plane (one f32 per four pixels) written once;
 // the second launch reads the half plane back, which a later fusion of the
 // two launches would save.
+//
+// With a blur pointer the front kernel also writes the f32 blur plane of the
+// whole padded frame (the TPU kernel's emit_blur=True): the input of the
+// blur-fed cluster kernel (cluster.cu, ag_cluster_rochade). Bound: memory,
+// now dominated by the 4-byte plane written once per pixel.
+//
+// gray_kernel (replacing pallas/frontend.py::gray_kernel) is the front
+// kernel's gray conversion alone: bare raw frames -> f32 and u8 luma planes
+// padded to 64-row / 128-column multiples, every element outside the frame
+// a replica of the frame's nearest edge pixel. One thread per output pixel;
+// bound: memory (1-3 raw bytes read, 5 bytes written per pixel).
+//
+// fused_kernel (replacing pallas/frontend.py::fused_frontend) is the plane
+// path's stencil: a bare f32 luma plane -> blur and Hessian-response planes
+// plus the per-(tile, strip) response minima, on the same 64x64 tile
+// stencil. The TPU kernel returns padded planes and the caller crops them;
+// here the kernel masks its stores to the output shape it is given, so the
+// cropped form is written directly. The response is zeroed on the one-pixel
+// border of the true image and in all padding before the minimum is taken.
+// Bound: memory — 4 bytes read and 8 written per pixel against ~42 f32
+// operations.
 #include "stencil.cuh"
 
 namespace {
@@ -34,7 +55,7 @@ using namespace ag;
 
 __global__ void __launch_bounds__(THREADS)
 front_kernel(const void* raw, int hp, int wp, int channels, int mode, int h,
-             int w, Taps7 taps, uint8_t* luma8, float* strip_min,
+             int w, Taps7 taps, uint8_t* luma8, float* blur, float* strip_min,
              int n_strips) {
   __shared__ TileSmem s;
   __shared__ float warp_min[THREADS / 32];
@@ -62,22 +83,65 @@ front_kernel(const void* raw, int hp, int wp, int channels, int mode, int h,
   for (int idx = tid; idx < TILE_H * STRIP_W; idx += THREADS) {
     int y = idx / STRIP_W, x = idx % STRIP_W;
     int r = ti * TILE_H + y, c = c0 + x;
+    if (blur != nullptr)
+      blur[((size_t)b * hp + r) * wp + c] = s.lum[y + 1][x + 1];
     float v = hessian_at(s, y + 1, x + 1);
     // the reference leaves the image border 0; rows >= h are padding
     if (r <= 0 || r >= h - 1 || c == 0 || c >= w - 1) v = 0.0f;
     m = v < m ? v : m;
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    float t = __shfl_down_sync(0xffffffffu, m, o);
-    m = t < m ? t : m;
+  m = block_min(m, warp_min);
+  if (tid == 0) strip_min[((size_t)b * gridDim.y + ti) * n_strips + si] = m;
+}
+
+// The plane path's stencil for block (frame, 64-row tile, 64-column strip)
+// of a (hin, win) luma plane: blur and response stored where (row, column)
+// lies inside (out_h, out_w), the response border of the true (h, w) image
+// and all padding zeroed, the block's response minimum to strip_min.
+__global__ void __launch_bounds__(THREADS)
+fused_kernel(const float* luma, int hin, int win, int h, int w, Taps7 taps,
+             float* blur, float* resp, int out_h, int out_w, float* strip_min,
+             int n_strips) {
+  __shared__ TileSmem s;
+  __shared__ float warp_min[THREADS / 32];
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  blur_tile_plane(s, luma, b, ti, si, hin, win, taps);
+
+  float m = INFINITY;
+  for (int idx = tid; idx < TILE_H * STRIP_W; idx += THREADS) {
+    int y = idx / STRIP_W, x = idx % STRIP_W;
+    int r = ti * TILE_H + y, c = si * STRIP_W + x;
+    float v = hessian_at(s, y + 1, x + 1);
+    if (r == 0 || r >= h - 1 || c == 0 || c >= w - 1) v = 0.0f;
+    m = v < m ? v : m;
+    if (r < out_h && c < out_w) {
+      const size_t o = ((size_t)b * out_h + r) * out_w + c;
+      blur[o] = s.lum[y + 1][x + 1];
+      if (resp != nullptr) resp[o] = v;
+    }
   }
-  if ((tid & 31) == 0) warp_min[tid >> 5] = m;
-  __syncthreads();
-  if (tid == 0) {
-    float r = warp_min[0];
-    for (int i = 1; i < THREADS / 32; ++i) r = warp_min[i] < r ? warp_min[i] : r;
-    strip_min[((size_t)b * gridDim.y + ti) * n_strips + si] = r;
-  }
+  m = block_min(m, warp_min);
+  if (tid == 0) strip_min[((size_t)b * gridDim.y + ti) * n_strips + si] = m;
+}
+
+constexpr int GRAY_BX = 32, GRAY_BY = 8;
+
+// One thread per element (r, c) of the padded luma planes: the luma of raw
+// pixel (min(r, h - 1), min(c, w - 1)).
+__global__ void __launch_bounds__(GRAY_BX * GRAY_BY)
+gray_kernel(const void* raw, int h, int w, int channels, int mode, int hp,
+            int wp, float* luma_f, uint8_t* luma8) {
+  const int c = blockIdx.x * GRAY_BX + threadIdx.x;
+  const int r = blockIdx.y * GRAY_BY + threadIdx.y;
+  const int b = blockIdx.z;
+  if (r >= hp || c >= wp) return;
+  const size_t off =
+      ((size_t)b * h + min(r, h - 1)) * ((size_t)w * channels);
+  const int cc = min(c, w - 1);
+  const size_t o = ((size_t)b * hp + r) * wp + c;
+  luma_f[o] = luma_f32(raw, off, cc, channels, mode);
+  luma8[o] = luma_u8(raw, off, cc, channels, mode);
 }
 
 constexpr int DEC_BX = 32, DEC_BY = 8;
@@ -127,11 +191,11 @@ Taps7 taps_of(const float* taps7) {
 
 int launch_front(const void* raw, int b, int hp, int wp, int channels,
                  int mode, int h, int w, const Taps7& taps, void* luma8,
-                 void* strip_min, cudaStream_t st) {
+                 void* blur, void* strip_min, cudaStream_t st) {
   const int n_strips = wp / STRIP_W;
   dim3 grid(n_strips, hp / TILE_H, b);
   front_kernel<<<grid, THREADS, 0, st>>>(raw, hp, wp, channels, mode, h, w,
-                                         taps, (uint8_t*)luma8,
+                                         taps, (uint8_t*)luma8, (float*)blur,
                                          (float*)strip_min, n_strips);
   return (int)cudaGetLastError();
 }
@@ -139,14 +203,44 @@ int launch_front(const void* raw, int b, int hp, int wp, int channels,
 }  // namespace
 
 // raw: (b, hp + 16, wp * channels) u8 (mode 0) or u16 (mode 1); luma8:
-// (b, hp, wp) u8; strip_min: (b, hp / 64, wp / 64) f32. Returns
-// cudaGetLastError().
+// (b, hp, wp) u8; blur: (b, hp, wp) f32 or null (no blur plane wanted);
+// strip_min: (b, hp / 64, wp / 64) f32. Returns cudaGetLastError().
 extern "C" int ag_front_kernel(const void* raw, int b, int hp, int wp,
                                int channels, int mode, int h, int w,
-                               const float* taps7, void* luma8,
+                               const float* taps7, void* luma8, void* blur,
                                void* strip_min, void* stream) {
   return launch_front(raw, b, hp, wp, channels, mode, h, w, taps_of(taps7),
-                      luma8, strip_min, (cudaStream_t)stream);
+                      luma8, blur, strip_min, (cudaStream_t)stream);
+}
+
+// luma: (b, hin, win) f32; (h, w) the true image size, hp = ceil(h / 64) *
+// 64 and wp = ceil(w / 128) * 128 the tiled extent (h <= hin <= hp, w <= win
+// <= wp); blur and resp (resp may be null): (b, out_h, out_w) f32 with
+// (out_h, out_w) = (h, w) or (hp, wp); strip_min: (b, hp / 64, wp / 64) f32.
+// Returns cudaGetLastError().
+extern "C" int ag_fused_frontend(const void* luma, int b, int hin, int win,
+                                 int h, int w, int hp, int wp,
+                                 const float* taps7, void* blur, void* resp,
+                                 int out_h, int out_w, void* strip_min,
+                                 void* stream) {
+  const int n_strips = wp / STRIP_W;
+  dim3 grid(n_strips, hp / TILE_H, b);
+  fused_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)luma, hin, win, h, w, taps_of(taps7), (float*)blur,
+      (float*)resp, out_h, out_w, (float*)strip_min, n_strips);
+  return (int)cudaGetLastError();
+}
+
+// raw: (b, h, w * channels) u8 (mode 0) or u16 (mode 1, one channel), no
+// padding; luma_f: (b, hp, wp) f32 and luma8: (b, hp, wp) u8 with hp >= h,
+// wp >= w. Returns cudaGetLastError().
+extern "C" int ag_gray_kernel(const void* raw, int b, int h, int w,
+                              int channels, int mode, int hp, int wp,
+                              void* luma_f, void* luma8, void* stream) {
+  dim3 grid((wp + GRAY_BX - 1) / GRAY_BX, (hp + GRAY_BY - 1) / GRAY_BY, b);
+  gray_kernel<<<grid, dim3(GRAY_BX, GRAY_BY), 0, (cudaStream_t)stream>>>(
+      raw, h, w, channels, mode, hp, wp, (float*)luma_f, (uint8_t*)luma8);
+  return (int)cudaGetLastError();
 }
 
 // raw, luma8: as above, (h, w) the true frame size. half_p:
@@ -168,5 +262,5 @@ extern "C" int ag_front_kernel_decimate(const void* raw, int b, int hp, int wp,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_front(half_p, b, hhp, whp, 1, MODE_F32, hh, wh, taps_of(taps7),
-                      nullptr, strip_min, st);
+                      nullptr, nullptr, strip_min, st);
 }

@@ -16,7 +16,9 @@
 //
 // A frame may also arrive as an f32 luma plane in the same padded layout
 // (MODE_F32: the turbo path's half-resolution plane); the stencil then
-// reads the values as they are.
+// reads the values as they are. blur_tile_plane is the same stencil fed
+// from a bare f32 plane without margins (the plane path's fused_frontend):
+// rows and columns are clamped to the plane as given.
 //
 // Layout: the padded raw frame (pad_raw) has hp + 16 rows (8 edge rows
 // above the image, >= 8 below) of wp * channels elements. Tile i covers
@@ -96,27 +98,14 @@ struct TileSmem {
   float tmp[LROWS][TCOLS];
 };
 
-// Fills s.lum (as the blurred tile, [BROWS][TCOLS] in the top-left corner
-// of the array) for block (frame b, tile ti, strip si). Entry (y, x) of the
-// result is the blur at image row 64 ti - 1 + y, column 64 si - 1 + x.
-__device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
-                                          int b, int ti, int si, int hp,
-                                          int wp, int channels, int mode,
-                                          int w, const Taps7& taps) {
+// The two blur passes over the staged luma tile s.lum[LROWS][LCOLS]: the
+// blurred tile lands in the top-left [BROWS][TCOLS] corner of s.lum. Luma
+// entry (y, x) being image row R - 4 + y, column C - 4 + x, blurred entry
+// (y, x) is the blur at image row R - 1 + y, column C - 1 + x.
+__device__ __forceinline__ void blur_passes(TileSmem& s, const Taps7& taps) {
   const int tid = threadIdx.x;
-  const int c0 = si * STRIP_W;
-  const size_t row_elems = (size_t)wp * channels;
-  const size_t frame_elems = (size_t)(hp + 16) * row_elems;
-  // padded row of luma row y: 64 ti + 4 + y (y in [0, LROWS))
-  const int pr0 = ti * TILE_H + 4;
-  for (int idx = tid; idx < LROWS * LCOLS; idx += THREADS) {
-    int y = idx / LCOLS, x = idx % LCOLS;
-    int c = min(max(c0 - HALO + x, 0), w - 1);
-    size_t off = (size_t)b * frame_elems + (size_t)(pr0 + y) * row_elems;
-    s.lum[y][x] = luma_f32(raw, off, c, channels, mode);
-  }
   __syncthreads();
-  // horizontal pass: tmp[y][x] = blur_h at column c0 - 1 + x
+  // horizontal pass: tmp[y][x] = blur_h at column C - 1 + x
   for (int idx = tid; idx < LROWS * TCOLS; idx += THREADS) {
     int y = idx / TCOLS, x = idx % TCOLS;
     float acc = 0.0f;
@@ -138,18 +127,78 @@ __device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
   __syncthreads();
 }
 
-// Hessian determinant at blurred-tile entry (y, x) (1 <= y, x): the
+// Fills s.lum (as the blurred tile, [BROWS][TCOLS] in the top-left corner
+// of the array) for block (frame b, tile ti, strip si). Entry (y, x) of the
+// result is the blur at image row 64 ti - 1 + y, column 64 si - 1 + x.
+__device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
+                                          int b, int ti, int si, int hp,
+                                          int wp, int channels, int mode,
+                                          int w, const Taps7& taps) {
+  const int tid = threadIdx.x;
+  const int c0 = si * STRIP_W;
+  const size_t row_elems = (size_t)wp * channels;
+  const size_t frame_elems = (size_t)(hp + 16) * row_elems;
+  // padded row of luma row y: 64 ti + 4 + y (y in [0, LROWS))
+  const int pr0 = ti * TILE_H + 4;
+  for (int idx = tid; idx < LROWS * LCOLS; idx += THREADS) {
+    int y = idx / LCOLS, x = idx % LCOLS;
+    int c = min(max(c0 - HALO + x, 0), w - 1);
+    size_t off = (size_t)b * frame_elems + (size_t)(pr0 + y) * row_elems;
+    s.lum[y][x] = luma_f32(raw, off, c, channels, mode);
+  }
+  blur_passes(s, taps);
+}
+
+// The same blurred tile from a bare (frames, hin, win) f32 luma plane: no
+// margin rows, so rows as well as columns are clamped to the plane (its
+// edge values replicated, the reference's clamped-border blur).
+__device__ __forceinline__ void blur_tile_plane(TileSmem& s,
+                                                const float* plane, int b,
+                                                int ti, int si, int hin,
+                                                int win, const Taps7& taps) {
+  const float* frame = plane + (size_t)b * hin * win;
+  for (int idx = threadIdx.x; idx < LROWS * LCOLS; idx += THREADS) {
+    int y = idx / LCOLS, x = idx % LCOLS;
+    int r = min(max(ti * TILE_H - HALO + y, 0), hin - 1);
+    int c = min(max(si * STRIP_W - HALO + x, 0), win - 1);
+    s.lum[y][x] = frame[(size_t)r * win + c];
+  }
+  blur_passes(s, taps);
+}
+
+// Hessian determinant at the blur value ``p`` points to, in a plane (or
+// tile) of row stride ``stride``, all eight neighbours readable: the
 // reference stencil (src/image_util.rs:72-109) in its op order.
-__device__ __forceinline__ float hessian_at(const TileSmem& s, int y, int x) {
-  float c = s.lum[y][x];
-  float left = s.lum[y][x - 1], right = s.lum[y][x + 1];
-  float up = s.lum[y - 1][x], down = s.lum[y + 1][x];
-  float ul = s.lum[y - 1][x - 1], ur = s.lum[y - 1][x + 1];
-  float dl = s.lum[y + 1][x - 1], dr = s.lum[y + 1][x + 1];
+__device__ __forceinline__ float hessian_ptr(const float* p, int stride) {
+  float c = p[0];
+  float left = p[-1], right = p[1];
+  float up = p[-stride], down = p[stride];
+  float ul = p[-stride - 1], ur = p[-stride + 1];
+  float dl = p[stride - 1], dr = p[stride + 1];
   float lxx = __fadd_rn(__fsub_rn(left, __fmul_rn(2.0f, c)), right);
   float lyy = __fadd_rn(__fsub_rn(up, __fmul_rn(2.0f, c)), down);
   float lxy = __fmul_rn(__fsub_rn(__fadd_rn(__fsub_rn(ur, ul), dl), dr), 0.25f);
   return __fsub_rn(__fmul_rn(lxx, lyy), __fmul_rn(lxy, lxy));
+}
+
+// The same at blurred-tile entry (y, x) (1 <= y, x).
+__device__ __forceinline__ float hessian_at(const TileSmem& s, int y, int x) {
+  return hessian_ptr(&s.lum[y][x], LCOLS);
+}
+
+// Minimum of ``m`` over the block's THREADS threads, valid in thread 0;
+// ``warp_min`` is THREADS / 32 floats of shared memory.
+__device__ __forceinline__ float block_min(float m, float* warp_min) {
+  const int tid = threadIdx.x;
+  for (int o = 16; o > 0; o >>= 1) {
+    float t = __shfl_down_sync(0xffffffffu, m, o);
+    m = t < m ? t : m;
+  }
+  if ((tid & 31) == 0) warp_min[tid >> 5] = m;
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 1; i < THREADS / 32; ++i) m = warp_min[i] < m ? warp_min[i] : m;
+  return m;
 }
 
 }  // namespace ag

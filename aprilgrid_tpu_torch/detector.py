@@ -10,7 +10,11 @@ batch is processed in chunks, each in order:
 
 for ``max_num_of_boards`` passes (src/detector.rs:510-538). With
 ``decimate`` the front-end is the approximate turbo path
-(pipeline.py::decimated_frontend_batch); everything after it is the same.
+(pipeline.py::decimated_frontend_batch); frames beyond the fused kernels'
+label domain (8K-class) take the plane path
+(pipeline.py::planes_frontend_batch) with a warning; everything after the
+front-end is the same. ``refined_saddle_points`` is the single-image
+front-end (pipeline.py::saddle_frontend), always on the plane path.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from .ops.decode import decode_quads_batch
 from .pipeline import (
     _turbo_nms_env,
     frontend_packed,
-    saddle_frontend_batch,
+    saddle_frontend,
     turbo_fast_path_ok,
 )
 
@@ -77,6 +81,15 @@ class TagDetector:
     (tests/test_torch_decimate.py); smaller frames lose recall. ``True``:
     always; ``"auto"``: only on frames >= 2 MP; ``False`` (default): the
     exact mode, which keeps reference parity.
+
+    Frames of up to 2^31 - 1 pixels are served: exact frames with ``w >=
+    2^16`` or ``h*w >= 2^24`` (turbo: the half plane) are beyond the fused
+    kernels' label domain and take the plane path — f32 planes through the
+    ``fused_frontend`` kernel, clustering at the sizes of ``capacities``
+    (``max_clusters``, ``max_masked``, ``label_prop_rounds``) — with one
+    RuntimeWarning per shape. That path takes a chunk in pieces of at most
+    ``pipeline.PLANE_PIXELS`` pixels; its int32 labels end at 2^31 pixels
+    per frame.
 
     Only the hybrid mode exists so far: ``mode="xla"`` raises
     NotImplementedError (ROADMAP.md lists the slice that brings it)."""
@@ -149,15 +162,16 @@ class TagDetector:
 
     def refined_saddle_points(self, img) -> list[Saddle]:
         """Front-end only (reference: src/detector.rs:408-446): the
-        refined saddles of one image, for corner-only consumers."""
-        frames = _as_tensor(img)[None].to(self.device)
-        h, w = int(frames.shape[1]), int(frames.shape[2])
-        dec = self._use_decimate(h, w)
-        saddles, _, _ = saddle_frontend_batch(
-            frames, self.params, self.consts, self.caps,
-            decimate=dec, nms=self._turbo_nms(h, w) if dec else None,
+        refined saddles of one image, for corner-only consumers. It runs
+        the single-image plane path (``pipeline.saddle_frontend``) on
+        every DynamicImage mode, whatever the frame size (below 2^31
+        pixels)."""
+        frame = _as_tensor(img).to(self.device)
+        saddles, _ = saddle_frontend(
+            frame, self.params, self.consts, self.caps,
+            decimate=self._use_decimate(int(frame.shape[0]), int(frame.shape[1])),
         )
-        p, k, theta, phi, valid = (t[0].cpu().numpy() for t in saddles)
+        p, k, theta, phi, valid = (t.cpu().numpy() for t in saddles)
         return [
             Saddle(p=(float(p[i, 0]), float(p[i, 1])), k=float(k[i]),
                    theta=float(theta[i]), phi=float(phi[i]))

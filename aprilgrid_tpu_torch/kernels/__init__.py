@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the hybrid detector's exact and turbo paths.
+"""Hand-written CUDA kernels of the hybrid detector's exact, turbo and plane
+paths.
 
 Each public function here is a wrapper: on a CPU tensor it runs its plain
 PyTorch version (the reference the kernel is held against); on a CUDA
@@ -15,6 +16,10 @@ LAUNCHES = {
     "cluster_rochade_raw[luma_f32]": 0,  # the cluster kernel's f32-luma mode
     "nms_extract_raw": 0,
     "sparse_refine_raw": 0,
+    "fused_frontend": 0,
+    "gray_kernel": 0,
+    "cluster_rochade": 0,                # the cluster kernel fed a blur plane
+    "front_kernel[emit_blur]": 0,        # the front kernel writing its blur plane
 }
 
 

@@ -86,10 +86,18 @@ def lib() -> ctypes.CDLL:
     handle = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.ag_front_kernel.restype = i
-    handle.ag_front_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p]
+    handle.ag_front_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p, p]
+    handle.ag_fused_frontend.restype = i
+    handle.ag_fused_frontend.argtypes = [p, i, i, i, i, i, i, i, p, p, p, i, i, p, p]
+    handle.ag_gray_kernel.restype = i
+    handle.ag_gray_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p]
     handle.ag_cluster_rochade_raw.restype = i
     handle.ag_cluster_rochade_raw.argtypes = [
         p, i, i, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p, p, i, p,
+    ]
+    handle.ag_cluster_rochade.restype = i
+    handle.ag_cluster_rochade.argtypes = [
+        p, i, i, i, i, i, p, p, f, i, p, p, p, p, p, i, p,
     ]
     handle.ag_front_kernel_decimate.restype = i
     handle.ag_front_kernel_decimate.argtypes = [

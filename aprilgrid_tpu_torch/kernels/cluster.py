@@ -9,7 +9,18 @@ what bounds it and how the design answers); on a CPU tensor it runs
 and ops/rochade.py. Its ``luma_f32`` mode (the turbo path's drain variant)
 reads an f32 half-resolution luma plane instead of raw pixels.
 
+``cluster_rochade`` replaces ``pallas/cluster.py::cluster_rochade``, the
+blur-fed twin: it takes the padded f32 blur plane (``front_kernel(...,
+emit_blur=True)`` or ``fused_frontend(..., crop=False)``) and skips the
+gray + blur stencil; mask, union-find, member sums, record and append are
+the same launches. Fed the blur of the same frame it returns what
+``cluster_rochade_raw`` returns, bit for bit after ``sort_candidates``.
+
 Differences from the TPU kernel, by design:
+
+* the labeling is global, so there is no sweep window: the TPU kernel's
+  requirement that the padded height cover one window (``hp >= _WIN``)
+  has no counterpart, frames of any height are served;
 
 * the labeling is global, so there is no blob-size cap: the second
   counter (clusters dropped at the TPU kernel's member-scan window) is
@@ -119,47 +130,112 @@ def cluster_rochade_raw(
     f32: [#appended (== _CAPF signals possible overflow), #clusters
     dropped — always 0, the labeling has no blob-size cap])."""
     check_raw(raw_p, channels, u16, "cluster_rochade_raw", luma_f32)
-    if hp2 != 4:
-        raise ValueError("cluster_rochade_raw: the fit takes half_patch 2 (hp2=4)")
-    if h * w >= 2**24:
-        raise ValueError(
-            f"{h}x{w}: scan-order labels exceed f32's exact-integer range"
-        )
-    if thr.shape != (raw_p.shape[0],) or thr.dtype != torch.float32:
-        raise ValueError("cluster_rochade_raw: thr must be (B,) f32")
+    _check_fit_args("cluster_rochade_raw", raw_p, thr, h, w, hp2)
     if raw_p.device.type == "cpu":
         return cluster_rochade_raw_plain(
             raw_p, thr, h, w, channels, u16, sigma, hp2, move_thr, luma_f32
         )
     require_cuda(raw_p, "cluster_rochade_raw")
-    if thr.device != raw_p.device:
-        raise ValueError("cluster_rochade_raw: thr must be on raw_p's device")
     b, rows, _ = raw_p.shape
     h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
-    dev = raw_p.device
     thr = thr.contiguous()
-    blur = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
-    labels = torch.empty((b, h_pad, w_pad), dtype=torch.int32, device=dev)
-    cnt = torch.empty((b, h_pad, w_pad), dtype=torch.int32, device=dev)
-    sums = torch.empty((b, h_pad, w_pad, 2), dtype=torch.int64, device=dev)
-    napp = torch.zeros((b,), dtype=torch.int32, device=dev)
-    fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=dev)
+    blur = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=raw_p.device)
+    labels, cnt, sums, napp, fields = _scratch(blur)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
     err = lib().ag_cluster_rochade_raw(
         raw_p.data_ptr(), b, h_pad, w_pad, channels,
-        _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(), ctypes.addressof(taps), ctypes.addressof(fit),
+        _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(),
+        ctypes.addressof(taps), ctypes.addressof(fit),
         float(move_thr), hp2, blur.data_ptr(), labels.data_ptr(),
         cnt.data_ptr(), sums.data_ptr(), napp.data_ptr(), fields.data_ptr(),
         _CAPF, stream_of(raw_p),
     )
     check(err, "cluster_rochade_raw")
     LAUNCHES["cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"] += 1
-    counts = torch.stack(
+    return fields, _counts(napp)
+
+
+def _check_fit_args(name: str, frames: torch.Tensor, thr: torch.Tensor,
+                    h: int, w: int, hp2: int) -> None:
+    """The argument contract both cluster wrappers share."""
+    if hp2 != 4:
+        raise ValueError(f"{name}: the fit takes half_patch 2 (hp2=4)")
+    # candidate rows store the scan-order label row*w + col + 1 as f32
+    if w >= 2**16 or h * w >= 2**24:
+        raise ValueError(
+            f"{name}: {h}x{w} is beyond the label domain (w < 2^16, scan-order "
+            "labels h*w < 2^24 exact in f32); such frames take the plane path "
+            "(pipeline.planes_frontend_batch), which saddle_frontend_batch "
+            "routes them to"
+        )
+    if thr.shape != (frames.shape[0],) or thr.dtype != torch.float32:
+        raise ValueError(f"{name}: thr must be (B,) f32")
+    if thr.device != frames.device:
+        raise ValueError(f"{name}: thr must be on the frames' device")
+
+
+def _scratch(blur: torch.Tensor):
+    """Device scratch and outputs of the component launches for a
+    (B, Hp, Wp) blur plane: labels, cnt, sums, napp, fields."""
+    b, dev = blur.shape[0], blur.device
+    labels = torch.empty(blur.shape, dtype=torch.int32, device=dev)
+    cnt = torch.empty(blur.shape, dtype=torch.int32, device=dev)
+    sums = torch.empty((*blur.shape, 2), dtype=torch.int64, device=dev)
+    napp = torch.zeros((b,), dtype=torch.int32, device=dev)
+    fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=dev)
+    return labels, cnt, sums, napp, fields
+
+
+def _counts(napp: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
         [torch.clamp(napp, max=_CAPF).to(torch.float32),
-         torch.zeros((b,), dtype=torch.float32, device=dev)], 1,
+         torch.zeros(napp.shape, dtype=torch.float32, device=napp.device)], 1,
     )
-    return fields, counts
+
+
+def cluster_rochade_plain(blur: torch.Tensor, thr: torch.Tensor, h: int, w: int,
+                          hp2: int = 4, move_thr: float = 1.0):
+    """Plain PyTorch version of ``cluster_rochade``."""
+    return cluster_from_blur_plain(blur[:, :h, :w], thr, hp2, move_thr)
+
+
+def cluster_rochade(
+    blur: torch.Tensor,   # (B, Hp, Wp) f32, padded
+    thr: torch.Tensor,    # (B,) f32
+    h: int,               # true image height
+    w: int,               # true image width
+    hp2: int = 4,
+    move_thr: float = 1.0,
+):
+    """``cluster_rochade_raw`` fed the padded blur plane instead of raw
+    frames: accepted candidate saddles of the (h, w) image in the top-left
+    corner of ``blur``, append-compacted per frame; same returns. The
+    plane has no margin rows above the image (``pad_raw`` arrays have 8)."""
+    if blur.ndim != 3 or blur.dtype != torch.float32 or not blur.is_contiguous():
+        raise ValueError("cluster_rochade: blur must be a contiguous (B, Hp, Wp) f32 plane")
+    hp, wp = blur.shape[1:]
+    if hp % 8 or wp % 128 or hp < h or wp < w:
+        raise ValueError(
+            f"cluster_rochade: a {hp}x{wp} plane is not a padded layout of a "
+            f"{h}x{w} image (rows a multiple of 8, columns of 128)"
+        )
+    _check_fit_args("cluster_rochade", blur, thr, h, w, hp2)
+    if blur.device.type == "cpu":
+        return cluster_rochade_plain(blur, thr, h, w, hp2, move_thr)
+    require_cuda(blur, "cluster_rochade")
+    thr = thr.contiguous()
+    labels, cnt, sums, napp, fields = _scratch(blur)
+    fit = fit_struct(hp2 // 2)
+    err = lib().ag_cluster_rochade(
+        blur.data_ptr(), blur.shape[0], hp, wp, h, w, thr.data_ptr(),
+        ctypes.addressof(fit), float(move_thr), hp2, labels.data_ptr(),
+        cnt.data_ptr(), sums.data_ptr(), napp.data_ptr(), fields.data_ptr(),
+        _CAPF, stream_of(blur),
+    )
+    check(err, "cluster_rochade")
+    LAUNCHES["cluster_rochade"] += 1
+    return fields, _counts(napp)
 
 
 def sort_candidates(fields: torch.Tensor):

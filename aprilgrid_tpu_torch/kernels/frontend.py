@@ -1,17 +1,25 @@
-"""Front kernel: padded raw frames -> u8 luma plane + response tile minima.
+"""Front kernels: raw frames or luma planes -> luma, blur and response.
 
 ``front_kernel`` replaces the JAX package's
-``pallas/frontend.py::front_kernel`` with ``emit_blur=False`` (the exact
-hybrid path). On a CUDA tensor it launches ``csrc/frontend.cu``; on a CPU
-tensor it runs ``front_kernel_plain``, the same function in plain PyTorch.
-What bounds the kernel on the H100 and what its design does about it is
-noted at the top of ``csrc/frontend.cu`` (memory: raw read + luma8 write,
-the f32 planes stay in shared memory).
+``pallas/frontend.py::front_kernel``: padded raw frames -> u8 luma plane +
+response tile minima (the exact hybrid path), and with ``emit_blur=True``
+also the padded f32 blur plane that feeds ``cluster_rochade``. On a CUDA
+tensor it launches ``csrc/frontend.cu``; on a CPU tensor it runs
+``front_kernel_plain``, the same function in plain PyTorch. What bounds
+each kernel on the H100 and what its design does about it is noted at the
+top of ``csrc/frontend.cu``.
 
 ``front_kernel_decimate`` replaces
 ``pallas/frontend.py::front_kernel_decimate``, the turbo path's front
 kernel: the same luma8, plus the half-resolution f32 luma plane (2x2 mean)
 and the response minima taken at half resolution.
+
+``fused_frontend`` replaces ``pallas/frontend.py::fused_frontend``, the
+plane path's stencil: f32 luma planes -> blur and Hessian-response planes,
+cropped to the input or padded with per-tile response minima.
+
+``gray_kernel`` replaces ``pallas/frontend.py::gray_kernel``: bare raw
+frames -> padded f32 and u8 luma planes.
 
 ``pad_raw`` lays the frames out as the front, cluster and refine kernels
 read them; ``pad_half`` does the same for a half-resolution luma plane.
@@ -32,64 +40,105 @@ TILE_H = 64    # image rows per tile (the TPU kernel's grid step)
 STRIP_W = 64   # image columns per CUDA block
 
 
+def _raw_mode(img: torch.Tensor, name: str):
+    """(B, H, W[, C]) raw frames -> (frames without alpha, channels, u16).
+    The in-kernel gray conversion handles exactly three raw modes (u8
+    gray, u16 gray, u8 RGB); anything else (LA, RGB16, f32) must be
+    folded first by pipeline.normalize_raw_batch, which the detector does."""
+    if img.ndim == 4 and img.shape[3] == 4 and img.dtype == torch.uint8:
+        img = img[..., :3]  # alpha is ignored (ops/gray.py semantics)
+    channels = img.shape[3] if img.ndim == 4 else 1
+    u16 = img.dtype == torch.uint16
+    if img.ndim not in (3, 4) or channels not in (1, 3) or (u16 and channels != 1) or (
+        img.dtype not in (torch.uint8, torch.uint16)
+    ):
+        raise TypeError(
+            f"{name}: unsupported raw mode (shape={tuple(img.shape)}, "
+            f"dtype={img.dtype}); fold exotic DynamicImage modes with "
+            "pipeline.normalize_raw_batch first"
+        )
+    return img, channels, u16
+
+
+def padded_shape(h: int, w: int) -> tuple[int, int]:
+    """(Hp, Wp) of an (h, w) plane: 64-row tiles, 128-column alignment."""
+    return -(-h // TILE_H) * TILE_H, -(-w // 128) * 128
+
+
+def _edge_pad(plane: torch.Tensor, h_pad: int, w_pad: int, margin: int = 0) -> torch.Tensor:
+    """(B, hin, win[, C]) -> (B, h_pad + 2*margin, w_pad[, C]): ``margin``
+    rows above the plane, rows up to ``h_pad`` (+ ``margin``) below and
+    columns up to ``w_pad``, every element outside the plane a replica of
+    the plane's own nearest edge value."""
+    hin, win = plane.shape[1:3]
+    if (hin, win) == (h_pad, w_pad) and margin == 0:
+        return plane
+    dev = plane.device
+    rows = torch.clamp(torch.arange(-margin, h_pad + margin, device=dev), 0, hin - 1)
+    cols = torch.clamp(torch.arange(w_pad, device=dev), max=win - 1)
+    return plane[:, rows][:, :, cols]
+
+
 def pad_raw(img: torch.Tensor):
     """Edge-pad raw frames for the fused kernels: 8 rows above, row/lane
     alignment below/right, channels flattened into the row. Returns
     (padded (B, Hp+16, Wp*C), h, w, channels, u16) with Hp = ceil(h/64)*64
     and Wp = ceil(w/128)*128 — the same padded array feeds both kernels."""
-    if img.ndim == 4 and img.shape[3] == 4 and img.dtype == torch.uint8:
-        img = img[..., :3]  # alpha is ignored (ops/gray.py semantics)
+    img, channels, u16 = _raw_mode(img, "pad_raw")
     b, hgt, wid = img.shape[:3]
-    channels = img.shape[3] if img.ndim == 4 else 1
-    u16 = img.dtype == torch.uint16
-    # the in-kernel gray conversion handles exactly three raw modes;
-    # anything else (LA, RGB16, f32) must be folded first by
-    # pipeline.normalize_raw_batch, which the detector does
-    if channels not in (1, 3) or (u16 and channels != 1) or (
-        img.dtype not in (torch.uint8, torch.uint16)
-    ):
-        raise TypeError(
-            f"pad_raw: unsupported raw mode (channels={channels}, "
-            f"dtype={img.dtype}); fold exotic DynamicImage modes with "
-            "pipeline.normalize_raw_batch first"
-        )
-    h_pad = -(-hgt // TILE_H) * TILE_H
-    w_pad = -(-wid // 128) * 128
-    dev = img.device
-    rows = torch.clamp(torch.arange(-8, h_pad + 8, device=dev), 0, hgt - 1)
-    cols = torch.clamp(torch.arange(w_pad, device=dev), 0, wid - 1)
+    h_pad, w_pad = padded_shape(hgt, wid)
     # index through the int16 view: u16 indexing is not served everywhere
     src = img.view(torch.int16) if u16 else img
-    out = src[:, rows][:, :, cols].reshape(b, h_pad + 16, w_pad * channels)
+    out = _edge_pad(src, h_pad, w_pad, 8).reshape(b, h_pad + 16, w_pad * channels)
     if u16:
         out = out.view(torch.uint16)
     return out.contiguous(), hgt, wid, channels, u16
 
 
-def _response_tile_min(lf_p: torch.Tensor, sigma: float,
-                       true_shape: tuple[int, int]) -> torch.Tensor:
-    """(B, Hp+16, Wp) f32 luma in the padded layout -> (B, Hp/64) minima of
-    the Hessian response per 64-row tile, the border of the true (h, w)
-    image and everything outside it zeroed."""
+def _zero_border(resp: torch.Tensor, true_shape: tuple[int, int]) -> torch.Tensor:
+    """(..., R, C) response plane with the one-pixel border of the true
+    (h, w) image and everything outside it set to 0."""
     h, w = true_shape
-    b, rows, w_pad = lf_p.shape
-    h_pad = rows - 16
-    # blur over the whole padded plane: its clamped borders equal the
-    # reference's (the padding replicates the image's edge pixels)
-    resp = hessian_response(gaussian_blur(lf_p, sigma))[:, 8 : 8 + h_pad]
-    r = torch.arange(h_pad, device=lf_p.device)[:, None]
-    c = torch.arange(w_pad, device=lf_p.device)[None, :]
+    r = torch.arange(resp.shape[-2], device=resp.device)[:, None]
+    c = torch.arange(resp.shape[-1], device=resp.device)[None, :]
     border = (r <= 0) | (r >= h - 1) | (c == 0) | (c >= w - 1)
-    resp = torch.where(border, torch.zeros_like(resp), resp)
+    return torch.where(border, torch.zeros_like(resp), resp)
+
+
+def _tile_min(resp: torch.Tensor) -> torch.Tensor:
+    """(B, Hp, Wp) -> (B, Hp/64) minima per 64-row tile."""
+    b, h_pad, w_pad = resp.shape
     return resp.reshape(b, h_pad // TILE_H, TILE_H * w_pad).amin(-1)
 
 
+def _blur_and_tile_min(lf_p: torch.Tensor, sigma: float,
+                       true_shape: tuple[int, int]):
+    """(B, Hp+16, Wp) f32 luma in the padded layout -> (blur (B, Hp, Wp),
+    (B, Hp/64) minima of the Hessian response per 64-row tile, the border
+    of the true (h, w) image and everything outside it zeroed)."""
+    # blur over the whole padded plane: its clamped borders equal the
+    # reference's (the padding replicates the image's edge pixels)
+    blur = gaussian_blur(lf_p, sigma)
+    resp = _zero_border(hessian_response(blur)[:, 8:-8], true_shape)
+    return blur[:, 8:-8], _tile_min(resp)
+
+
+def _response_tile_min(lf_p: torch.Tensor, sigma: float,
+                       true_shape: tuple[int, int]) -> torch.Tensor:
+    """The tile minima of ``_blur_and_tile_min`` alone."""
+    return _blur_and_tile_min(lf_p, sigma, true_shape)[1]
+
+
 def front_kernel_plain(raw_p: torch.Tensor, sigma: float,
-                       true_shape: tuple[int, int], channels: int, u16: bool):
+                       true_shape: tuple[int, int], channels: int, u16: bool,
+                       emit_blur: bool = False):
     """Plain PyTorch version of ``front_kernel`` (same outputs)."""
     lf, l8 = raw_luma(raw_p, channels, u16)
-    tile_min = _response_tile_min(lf, sigma, true_shape)
-    return l8[:, 8:-8].contiguous(), tile_min
+    blur, tile_min = _blur_and_tile_min(lf, sigma, true_shape)
+    l8 = l8[:, 8:-8].contiguous()
+    if emit_blur:
+        return blur.contiguous(), l8, tile_min
+    return l8, tile_min
 
 
 def pad_half(half: torch.Tensor) -> torch.Tensor:
@@ -97,11 +146,7 @@ def pad_half(half: torch.Tensor) -> torch.Tensor:
     the padded layout of ``pad_raw``: 8 rows above, Hhp = ceil(hh/64)*64,
     Whp = ceil(wh/128)*128, every element outside the plane a replica of
     the plane's own nearest edge value."""
-    hh, wh = half.shape[1:]
-    dev = half.device
-    rows = torch.clamp(torch.arange(-8, -(-hh // TILE_H) * TILE_H + 8, device=dev), 0, hh - 1)
-    cols = torch.clamp(torch.arange(-(-wh // 128) * 128, device=dev), 0, wh - 1)
-    return half[:, rows][:, :, cols].contiguous()
+    return _edge_pad(half, *padded_shape(*half.shape[1:]), 8).contiguous()
 
 
 def front_kernel_decimate_plain(raw_p: torch.Tensor, sigma: float,
@@ -142,32 +187,42 @@ def check_raw(raw_p: torch.Tensor, channels: int, u16: bool, name: str,
 
 
 def front_kernel(raw_p: torch.Tensor, sigma: float,
-                 true_shape: tuple[int, int], channels: int, u16: bool):
+                 true_shape: tuple[int, int], channels: int, u16: bool,
+                 emit_blur: bool = False):
     """(B, Hp+16, Wp*C) pad_raw output -> (luma8 (B, Hp, Wp) u8,
     tile_min (B, Hp/64) f32): image-crate gray, 7-tap clamped Gaussian
     blur and the Hessian response with the image border zeroed, reduced
     to one minimum per 64-row tile. The global minimum times the response
-    ratio is the cluster threshold."""
+    ratio is the cluster threshold.
+
+    With ``emit_blur`` the outputs are (blur_p (B, Hp, Wp) f32, luma8,
+    tile_min): the blur of the whole padded plane (the padding blurs the
+    frame's replicated edge pixels), which ``cluster_rochade`` reads."""
     check_raw(raw_p, channels, u16, "front_kernel")
     if raw_p.device.type == "cpu":
-        return front_kernel_plain(raw_p, sigma, true_shape, channels, u16)
+        return front_kernel_plain(raw_p, sigma, true_shape, channels, u16, emit_blur)
     require_cuda(raw_p, "front_kernel")
     h, w = true_shape
     b, rows, _ = raw_p.shape
     h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
     taps = _taps(sigma)
-    luma8 = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=raw_p.device)
+    dev = raw_p.device
+    luma8 = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=dev)
+    blur = (torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
+            if emit_blur else None)
     strip_min = torch.empty(
-        (b, h_pad // TILE_H, w_pad // STRIP_W), dtype=torch.float32,
-        device=raw_p.device,
+        (b, h_pad // TILE_H, w_pad // STRIP_W), dtype=torch.float32, device=dev
     )
     err = lib().ag_front_kernel(
         raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
-        ctypes.addressof(taps), luma8.data_ptr(), strip_min.data_ptr(),
+        ctypes.addressof(taps), luma8.data_ptr(),
+        blur.data_ptr() if emit_blur else None, strip_min.data_ptr(),
         stream_of(raw_p),
     )
     check(err, "front_kernel")
-    LAUNCHES["front_kernel"] += 1
+    LAUNCHES["front_kernel[emit_blur]" if emit_blur else "front_kernel"] += 1
+    if emit_blur:
+        return blur, luma8, strip_min.amin(-1)
     return luma8, strip_min.amin(-1)
 
 
@@ -214,3 +269,121 @@ def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
     check(err, "front_kernel_decimate")
     LAUNCHES["front_kernel_decimate"] += 1
     return luma8, half_p, strip_min.amin(-1)
+
+
+def fused_frontend_plain(luma: torch.Tensor, sigma: float = 1.5, crop: bool = True,
+                         true_shape: tuple[int, int] | None = None,
+                         emit_resp: bool = True):
+    """Plain PyTorch version of ``fused_frontend`` on (B, hin, win) planes
+    (same outputs): ops/frontend.py's blur and response over the padded
+    plane, border and padding of the response zeroed."""
+    h, w = true_shape if true_shape is not None else luma.shape[1:]
+    blur = gaussian_blur(_edge_pad(luma, *padded_shape(h, w)), sigma)
+    resp = _zero_border(hessian_response(blur), (h, w))
+    if crop:
+        return blur[:, :h, :w].contiguous(), resp[:, :h, :w].contiguous()
+    if emit_resp:
+        return blur, resp, _tile_min(resp)
+    return blur, _tile_min(resp)
+
+
+def fused_frontend(luma: torch.Tensor, sigma: float = 1.5, crop: bool = True,
+                   true_shape: tuple[int, int] | None = None,
+                   emit_resp: bool = True):
+    """(H, W) or (B, H, W) f32 luma -> (blur, resp) of the same shape:
+    ops/frontend.py's ``gaussian_blur`` (7 taps, clamped borders) and
+    ``hessian_response``, the response 0 on the image's one-pixel border.
+
+    ``crop=False`` returns the planes padded to Hp = ceil(h/64)*64 rows
+    and Wp = ceil(w/128)*128 columns — the blur of the edge-replicated
+    plane, the response 0 in all padding — and the response minima per
+    64-row tile, the layout ``cluster_rochade`` reads: (blur_p, resp_p,
+    tile_min (B, Hp/64)), always batched. ``emit_resp=False`` (padded form
+    only) drops the response plane: (blur_p, tile_min). ``true_shape``
+    names the real (h, w) of a plane that arrives already padded (the
+    output of ``gray_kernel``): border and minima follow the true shape."""
+    if luma.dtype != torch.float32 or luma.ndim not in (2, 3):
+        raise TypeError("fused_frontend: luma must be an (H, W) or (B, H, W) float32 plane")
+    if not emit_resp and crop:
+        raise ValueError("fused_frontend: emit_resp=False implies padded outputs (crop=False)")
+    squeeze = luma.ndim == 2
+    if squeeze:
+        luma = luma[None]
+    b, hin, win = luma.shape
+    h, w = true_shape if true_shape is not None else (hin, win)
+    h_pad, w_pad = padded_shape(h, w)
+    if not (0 < h <= hin <= h_pad and 0 < w <= win <= w_pad):
+        raise ValueError(
+            f"fused_frontend: a {hin}x{win} plane does not hold a {h}x{w} "
+            f"image padded to at most {h_pad}x{w_pad}"
+        )
+    if luma.device.type == "cpu":
+        outs = fused_frontend_plain(luma, sigma, crop, (h, w), emit_resp)
+    else:
+        require_cuda(luma, "fused_frontend")
+        luma = luma.contiguous()
+        taps = _taps(sigma)
+        dev = luma.device
+        shape = (b, h, w) if crop else (b, h_pad, w_pad)
+        blur = torch.empty(shape, dtype=torch.float32, device=dev)
+        resp = torch.empty(shape, dtype=torch.float32, device=dev) if emit_resp else None
+        strip_min = torch.empty(
+            (b, h_pad // TILE_H, w_pad // STRIP_W), dtype=torch.float32, device=dev
+        )
+        err = lib().ag_fused_frontend(
+            luma.data_ptr(), b, hin, win, h, w, h_pad, w_pad,
+            ctypes.addressof(taps), blur.data_ptr(),
+            resp.data_ptr() if emit_resp else None, shape[1], shape[2],
+            strip_min.data_ptr(), stream_of(luma),
+        )
+        check(err, "fused_frontend")
+        LAUNCHES["fused_frontend"] += 1
+        if crop:
+            outs = blur, resp
+        elif emit_resp:
+            outs = blur, resp, strip_min.amin(-1)
+        else:
+            outs = blur, strip_min.amin(-1)
+    if crop and squeeze:
+        return outs[0][0], outs[1][0]
+    return outs
+
+
+def gray_kernel_plain(img: torch.Tensor):
+    """Plain PyTorch version of ``gray_kernel`` (same outputs)."""
+    img, channels, u16 = _raw_mode(img, "gray_kernel")
+    b, h, w = img.shape[:3]
+    h_pad, w_pad = padded_shape(h, w)
+    # index through the int16 view: u16 indexing is not served everywhere
+    src = img.view(torch.int16) if u16 else img
+    raw = _edge_pad(src, h_pad, w_pad).reshape(b, h_pad, w_pad * channels)
+    if u16:
+        raw = raw.view(torch.uint16)
+    lf, l8 = raw_luma(raw, channels, u16)
+    return lf.contiguous(), l8.contiguous()
+
+
+def gray_kernel(img: torch.Tensor):
+    """(B, H, W[, 3]) u8 / (B, H, W) u16 raw frames -> (luma_f (B, Hp, Wp)
+    f32, luma_u8 (B, Hp, Wp) u8) with the image-crate gray conversion of
+    ``ops/gray.py::raw_luma``, padded to Hp = ceil(H/64)*64 rows and Wp =
+    ceil(W/128)*128 columns. The padding of both planes holds the luma of
+    the frame's nearest edge pixel (the raw frame is edge-replicated
+    before the conversion, as the JAX kernel's wrapper pads it), so a
+    clamped-border blur of ``luma_f`` equals that of the true plane."""
+    img, channels, u16 = _raw_mode(img, "gray_kernel")
+    if img.device.type == "cpu":
+        return gray_kernel_plain(img)
+    require_cuda(img, "gray_kernel")
+    img = img.contiguous()
+    b, h, w = img.shape[:3]
+    h_pad, w_pad = padded_shape(h, w)
+    luma_f = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=img.device)
+    luma8 = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=img.device)
+    err = lib().ag_gray_kernel(
+        img.data_ptr(), b, h, w, channels, int(u16), h_pad, w_pad,
+        luma_f.data_ptr(), luma8.data_ptr(), stream_of(img),
+    )
+    check(err, "gray_kernel")
+    LAUNCHES["gray_kernel"] += 1
+    return luma_f, luma8

@@ -98,6 +98,15 @@ def to_luma(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     raise TypeError(f"unsupported image shape/dtype {tuple(img.shape)} {img.dtype}")
 
 
+def to_luma_batch(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``to_luma`` over a batch of same-shape frames: (B, H, W[, C]) ->
+    ((B, H, W) f32, (B, H, W) u8). The conversion is per pixel, so the
+    frames are read as one (B*H, W[, C]) image."""
+    b, h = imgs.shape[:2]
+    luma_f, luma_u8 = to_luma(imgs.reshape(b * h, *imgs.shape[2:]))
+    return luma_f.reshape(b, h, -1), luma_u8.reshape(b, h, -1)
+
+
 def raw_luma(raw: torch.Tensor, channels: int, u16: bool):
     """(..., R, W*C) raw rows of the three kernel modes (u8 gray, u16
     gray, u8 RGB with the channels flattened into the row) -> (f32 luma,

@@ -169,10 +169,10 @@ def saddle_angles(c3: torch.Tensor, c4: torch.Tensor, c5: torch.Tensor):
 
 
 def refine_patches(
-    patch: torch.Tensor,      # (K, 9, 9) blur values
-    rx: torch.Tensor,         # (K,) int rounded centers
+    patch: torch.Tensor,      # (..., K, 9, 9) blur values
+    rx: torch.Tensor,         # (..., K) int rounded centers
     ry: torch.Tensor,
-    in_bounds: torch.Tensor,  # (K,) bool validity incl. bounds gate
+    in_bounds: torch.Tensor,  # (..., K) bool validity incl. bounds gate
     half_patch: int = 2,
     move_threshold: float = 1.0,
 ) -> Saddles:
@@ -186,16 +186,20 @@ def refine_patches(
 def gather_patches(blur: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
                    half_patch: int = 2) -> torch.Tensor:
     """(K, 9, 9) support patches of an (H, W) blur plane around the
-    rounded centers (clamped to the plane; out-of-bounds candidates are
-    gated by the caller)."""
-    h, w = blur.shape
+    rounded centers (K,), or (B, K, 9, 9) patches of (B, H, W) planes
+    around centers (B, K) (clamped to the plane; out-of-bounds candidates
+    are gated by the caller)."""
+    h, w = blur.shape[-2:]
     hp2 = 2 * half_patch
     sx = torch.clamp(rx - hp2, 0, w - 2 * hp2 - 1)
     sy = torch.clamp(ry - hp2, 0, h - 2 * hp2 - 1)
     off = torch.arange(2 * hp2 + 1, device=blur.device)
-    ys = sy[:, None, None] + off[None, :, None]
-    xs = sx[:, None, None] + off[None, None, :]
-    return blur[ys, xs]
+    ys = sy[..., None, None] + off[:, None]
+    xs = sx[..., None, None] + off[None, :]
+    if blur.ndim == 2:
+        return blur[ys, xs]
+    bi = torch.arange(blur.shape[0], device=blur.device)[:, None, None, None]
+    return blur[bi, ys, xs]
 
 
 def rochade_refine(
@@ -205,12 +209,12 @@ def rochade_refine(
     half_patch: int = 2,
     move_threshold: float = 1.0,
 ) -> Saddles:
-    """Refine all candidate corners of one (H, W) blur plane at once
-    (src/detector.rs:194-361)."""
+    """Refine all candidate corners at once (src/detector.rs:194-361):
+    centers (K, 2) on one (H, W) blur plane, or (B, K, 2) on (B, H, W)."""
     hp2 = 2 * half_patch
-    h, w = blur.shape
-    rx = rust_round(centers[:, 0]).to(torch.int64)
-    ry = rust_round(centers[:, 1]).to(torch.int64)
+    h, w = blur.shape[-2:]
+    rx = rust_round(centers[..., 0]).to(torch.int64)
+    ry = rust_round(centers[..., 1]).to(torch.int64)
     in_bounds = (
         (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
     ) & centers_valid

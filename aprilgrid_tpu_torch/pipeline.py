@@ -21,23 +21,44 @@ re-refined at full resolution from the raw frames:
             -> saddles_from_candidates -> filter_and_compact
             -> sparse_refine_raw at 2 p + 0.5 -> filter_and_compact
 
+Frames beyond the cluster kernel's label domain (``fused_path_ok``: widths
+from 2^16, scan-order labels from 2^24 — 8K-class exact frames; at half
+resolution for turbo) take the plane path (``planes_frontend_batch``),
+with a warning once per shape; ``saddle_frontend``, the single-image
+front-end behind ``refined_saddle_points``, takes it for every frame:
+
+    to_luma [-> decimate2] -> fused_frontend (blur + response planes)
+            -> cluster_centroids_bounded -> rochade_refine
+            -> filter_and_compact
+            [-> sparse_refine_raw at 2 p + 0.5 -> filter_and_compact]
+
 ``frontend_packed`` packs the saddles and the capacity counters into one
 (B, N+1, 4) array so the host reads them with a single copy.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import warnings
 
 import torch
 
 from .config import Capacities, DetectorParams, PipelineConstants
 from .kernels.cluster import _CAPF, cluster_rochade_raw, saddles_from_candidates
-from .kernels.frontend import front_kernel, front_kernel_decimate, pad_raw
+from .kernels.frontend import front_kernel, front_kernel_decimate, fused_frontend, pad_raw
 from .kernels.nms import cells_to_fields, nms_extract_raw
 from .kernels.refine import sparse_refine_raw
-from .ops.gray import as_int32
-from .ops.rochade import Saddles, filter_and_compact
+from .ops.cluster import cluster_centroids_bounded
+from .ops.frontend import decimate2
+from .ops.gray import as_int32, to_luma_batch
+from .ops.rochade import Saddles, filter_and_compact, rochade_refine
+
+
+# Pixels one piece of a plane-path batch may hold. Sixteen 4100 x 4100 RGB
+# frames (half of it) peak at 14.62 GiB of device memory on an H100 80GB
+# (chip_smoke.py prints the figure): about 58 bytes per pixel.
+PLANE_PIXELS = 2**29
 
 
 def _to_u16(v: torch.Tensor) -> torch.Tensor:
@@ -93,6 +114,36 @@ def turbo_fast_path_ok(h: int, w: int) -> bool:
     hh, wh = h // 2, w // 2
     cluster_ok = -(-hh // 64) * 64 >= 184 and wh < 2**16 and hh * wh < 2**24
     return cluster_ok and w < 2**16
+
+
+def fused_path_ok(h: int, w: int, decimate: bool = False) -> bool:
+    """Whether (h, w) frames lie in the label domain of the fused kernels:
+    widths below 2^16 (the JAX package packs the column into 16 bits) and
+    the scan-order label ``row * w + col + 1``, stored as f32, exact
+    below 2^24. The turbo path
+    labels the half plane, so it reaches four times the pixels. Frames
+    outside take the plane path. (The JAX package also sends frames
+    shorter than one sweep window of its cluster kernel around it; the
+    kernels here have no window, small frames stay on the fused path.)"""
+    lh, lw = (h // 2, w // 2) if decimate else (h, w)
+    return w < 2**16 and lh * lw < 2**24
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_plane_path(h: int, w: int, decimate: bool) -> None:
+    """Tell the user, once per frame shape and mode, that frames were
+    routed around the fused kernels."""
+    mode = "turbo, half resolution" if decimate else "exact"
+    warnings.warn(
+        f"{h}x{w} frames ({mode}) are beyond the fused kernels' label domain "
+        "(w < 2^16 and h*w < 2^24 at the labeled resolution): they take the "
+        "plane path (fused_frontend + plain PyTorch clustering), which "
+        "writes whole f32 planes to device memory. The turbo mode "
+        "(decimate=True) labels at half resolution and keeps frames of up "
+        "to four times the pixels on the fused kernels.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
 
 
 def _turbo_nms_env() -> str:
@@ -181,6 +232,92 @@ def decimated_frontend_batch(
     return saddles, luma8, _counters(counts, saddles)
 
 
+def _frontend_tail(blur: torch.Tensor, resp: torch.Tensor, params, consts,
+                   caps) -> Saddles:
+    """cluster -> ROCHADE -> gates on (B, h, w) blur and response planes."""
+    clusters = cluster_centroids_bounded(
+        resp, consts.response_threshold_ratio, caps.max_clusters,
+        caps.max_masked, caps.label_prop_rounds,
+    )
+    raw = rochade_refine(
+        blur, clusters.centers, clusters.valid, consts.rochade_half_patch,
+        consts.rochade_move_threshold,
+    )
+    return _gated(raw, params, consts, caps)
+
+
+def _decimated_tail(imgs: torch.Tensor, blur_h: torch.Tensor,
+                    resp_h: torch.Tensor, params, consts, caps) -> Saddles:
+    """The turbo back half on planes: the whole front-end tail at half
+    resolution on ``blur_h``/``resp_h``, survivors scaled back (half pixel
+    (x, y) sits at full-resolution (2x + 0.5, 2y + 0.5)) and re-refined at
+    full resolution straight from the raw frames ``imgs``
+    (``sparse_refine_raw``), then gated again."""
+    half_saddles = _frontend_tail(blur_h, resp_h, params, consts, caps)
+    # the refine kernel converts the three raw modes itself
+    raw_p, h, w, channels, u16 = pad_raw(normalize_raw_batch(imgs))
+    refined = sparse_refine_raw(
+        raw_p, half_saddles.p * 2.0 + 0.5, half_saddles.valid, h, w,
+        channels=channels, u16=u16, sigma=consts.blur_sigma,
+        hp2=2 * consts.rochade_half_patch, move_thr=consts.rochade_move_threshold,
+    )
+    return _gated(refined, params, consts, caps)
+
+
+def planes_frontend_batch(
+    imgs: torch.Tensor,
+    params: DetectorParams,
+    consts: PipelineConstants,
+    caps: Capacities,
+    decimate: bool = False,
+):
+    """The plane path on raw frames: f32 luma planes through
+    ``fused_frontend``, then clustering, ROCHADE and the gates in plain
+    PyTorch at the capacities of ``caps`` (turbo: the survivors re-refined
+    by ``sparse_refine_raw``). Returns what ``saddle_frontend_batch``
+    returns, with ``luma8`` the unpadded (B, h, w) plane. It has no
+    candidate buffer and no blob-size cap: the first two counters are
+    always 0.
+
+    A batch goes through in pieces of at most ``PLANE_PIXELS`` pixels (at
+    least one frame), which bounds the f32 planes and label temporaries a
+    call holds at once. One frame may hold up to 2^31 - 1 pixels, the
+    range of the int32 labels; ``label_components`` raises beyond."""
+    b, h, w = (int(n) for n in imgs.shape[:3])
+    step = max(1, PLANE_PIXELS // (h * w))
+    if b > step:
+        parts = [planes_frontend_batch(imgs[i : i + step], params, consts, caps, decimate)
+                 for i in range(0, b, step)]
+        saddles = Saddles(*(torch.cat(t) for t in zip(*(p[0] for p in parts))))
+        return saddles, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts])
+    luma_f, luma8 = to_luma_batch(imgs)
+    if decimate:
+        luma_f = decimate2(luma_f)
+    blur, resp = fused_frontend(luma_f, consts.blur_sigma)
+    if decimate:
+        saddles = _decimated_tail(imgs, blur, resp, params, consts, caps)
+    else:
+        saddles = _frontend_tail(blur, resp, params, consts, caps)
+    zeros = torch.zeros(b, dtype=torch.float32, device=imgs.device)
+    counters = torch.stack([zeros, zeros, saddles.valid.all(-1).to(torch.float32)], 1)
+    return saddles, luma8, counters
+
+
+def saddle_frontend(
+    img: torch.Tensor,
+    params: DetectorParams,
+    consts: PipelineConstants,
+    caps: Capacities,
+    decimate: bool = False,
+):
+    """Refined saddle points + u8 luma plane of ONE image of any
+    DynamicImage mode, (H, W[, C]), on the plane path: ``to_luma`` takes
+    every mode exactly, so nothing is folded first. Returns (Saddles with
+    (max_saddles, ...) fields, luma8 (H, W))."""
+    saddles, luma8, _ = planes_frontend_batch(img[None], params, consts, caps, decimate)
+    return Saddles(*(t[0] for t in saddles)), luma8[0]
+
+
 def saddle_frontend_batch(
     imgs: torch.Tensor,
     params: DetectorParams,
@@ -192,15 +329,20 @@ def saddle_frontend_batch(
     """(B, H, W[, C]) frames -> (saddles (B, max_saddles), luma8
     (B, Hp, Wp) u8, counters (B, 3) f32); ``decimate`` takes the turbo
     path (``decimated_frontend_batch``, extraction variant ``nms``).
+    Frames outside ``fused_path_ok`` take ``planes_frontend_batch``
+    instead (``luma8`` then is the unpadded (B, H, W) plane).
 
     The counters are [candidate-buffer overflow flag, candidates dropped
     (always 0 on the exact path: the labeling has no blob-size cap),
     saddle slots full flag]; non-zero entries mean the fixed-capacity
     pipeline MAY have diverged from the reference on that frame."""
     imgs = normalize_raw_batch(imgs)
+    h, w = int(imgs.shape[1]), int(imgs.shape[2])
+    if not fused_path_ok(h, w, decimate):
+        _warn_plane_path(h, w, bool(decimate))
+        return planes_frontend_batch(imgs, params, consts, caps, decimate)
     if decimate:
         return decimated_frontend_batch(imgs, params, consts, caps, nms)
-    h, w = int(imgs.shape[1]), int(imgs.shape[2])
     raw_p, _, _, channels, u16 = pad_raw(imgs)
     luma8, tile_min = front_kernel(
         raw_p, consts.blur_sigma, (h, w), channels, u16

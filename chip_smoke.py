@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's paths — ``TagDetector(device="cuda").detect_batch``, the
-exact hybrid detector and its turbo mode (``decimate=True``, both
-extraction variants) — on the bundled golden images at full resolution,
-after building every kernel from ``aprilgrid_tpu_torch/csrc`` and holding
-each against its plain PyTorch version on the card.
+exact hybrid detector, its turbo mode (``decimate=True``, both extraction
+variants) and the plane path (frames beyond the fused kernels' label
+domain, ``refined_saddle_points``) — on the bundled golden images at full
+resolution, after building every kernel from ``aprilgrid_tpu_torch/csrc``
+and holding each against its plain PyTorch version on the card.
 
 Phases (a failing phase raises, so the script exits non-zero):
 
@@ -18,14 +19,27 @@ Phases (a failing phase raises, so the script exits non-zero):
    kernels (decimating front kernel, the cluster kernel's f32-luma mode,
    NMS extraction, sparse refine) on iphone and two_boards at batch 32
    and on EuRoC and TUM_VI at batch 8, and the NMS tie-break on a plane
-   with planted equal responses;
+   with planted equal responses; the plane path's kernels
+   (``fused_frontend`` cropped and padded, ``gray_kernel``, the front
+   kernel's ``emit_blur`` mode, the blur-fed ``cluster_rochade``) on every
+   image at batch 32;
 3. end to end: ``detect_batch`` at batch 32 on EuRoC, TUM_VI, iphone and
    two_boards — golden tag counts on every frame, ID sets and corners
    against the port's own CPU run, frames/s timed with CUDA events; then
    the turbo mode on iphone and two_boards for the NMS and the drain
    variant, held the same way, and ``decimate="auto"`` on EuRoC against
    the exact result; the front-end's share of a chunk's time;
-4. one JSON line with each kernel's launches in phase 3 (counted per
+4. the split kernel chain at batch 32 on the four images (``gray_kernel ->
+   fused_frontend -> cluster_rochade`` and ``front_kernel(emit_blur=True)
+   -> cluster_rochade``), bit-equal to the fused chain;
+5. the plane path: ``planes_frontend_batch`` at batch 32 on iphone and
+   two_boards, exact and turbo, against its CPU run; ``detect_batch`` on
+   4096 x 4096 frames (outside the label domain) holding two_boards — 72
+   tags on every frame, equal to the CPU run, through ``fused_frontend``
+   and not through the cluster kernel; one 16-frame chunk of 4100 x 4100
+   frames with its peak device memory; ``refined_saddle_points`` with
+   its time per call;
+6. one JSON line with each kernel's launches in phases 3-5 (counted per
    path: zeroed before it, read after it), its error against the plain
    version, its time, the plain version's time and its bound.
 
@@ -256,6 +270,7 @@ def phase_kernels(card: str, batch: int) -> dict:
             ),
         }
         turbo_kernels(name, frames if name in TURBO else frames[: batch // 4], rec)
+        plane_kernels(name, frames, thr, roots, rec)
     nms_tie_break_check()
 
     spec = get_family("t36h11")
@@ -435,6 +450,105 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
     })
 
 
+def plane_kernels(name: str, frames, thr, roots: int, rec: dict) -> None:
+    """The plane path's kernels against their plain versions on one image's
+    frames (already on the card): ``fused_frontend`` (cropped and padded
+    forms), ``gray_kernel``, ``front_kernel(emit_blur=True)`` and the
+    blur-fed ``cluster_rochade`` (``thr``: the frames' thresholds, ``roots``:
+    the components per frame whose fit runs). All must be bit-equal."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        cluster_rochade,
+        cluster_rochade_plain,
+        sort_candidates,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel,
+        front_kernel_plain,
+        fused_frontend,
+        fused_frontend_plain,
+        gray_kernel,
+        gray_kernel_plain,
+        pad_raw,
+    )
+    from aprilgrid_tpu_torch.ops.gray import to_luma_batch
+
+    sigma = CONSTANTS.blur_sigma
+    batch, h, w = frames.shape[:3]
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def hold(what, got, want):
+        torch.cuda.synchronize()
+        err = max(diff(g, p) for g, p in zip(got, want))
+        if not all(g.shape == p.shape and torch.equal(g, p) for g, p in zip(got, want)):
+            raise AssertionError(f"{what} {name}: differs from its plain version, "
+                                 f"max |diff| {err}")
+        return err
+
+    luma, _ = to_luma_batch(frames)
+    luma = luma.contiguous()
+    fu_err = hold("fused_frontend", fused_frontend(luma, sigma),
+                  fused_frontend_plain(luma, sigma))
+    fu_err = max(fu_err, hold(
+        "fused_frontend[crop=False]", fused_frontend(luma, sigma, crop=False),
+        fused_frontend_plain(luma, sigma, crop=False)))
+
+    gr = gray_kernel(frames)
+    gr_err = hold("gray_kernel", gr, gray_kernel_plain(frames))
+    blur_p, tmin = fused_frontend(gr[0], sigma, crop=False, true_shape=(h, w),
+                                  emit_resp=False)
+    fu_err = max(fu_err, hold(
+        "fused_frontend[true_shape]", (blur_p, tmin),
+        fused_frontend_plain(gr[0], sigma, False, (h, w), False)))
+
+    raw_p, _, _, ch, u16 = pad_raw(frames)
+    args = (raw_p, sigma, (h, w), ch, u16, True)
+    eb = front_kernel(*args)
+    eb_err = hold("front_kernel[emit_blur]", eb, front_kernel_plain(*args))
+    if not torch.equal(eb[0], blur_p):
+        raise AssertionError(f"{name}: the front kernel's blur plane differs from "
+                             f"fused_frontend's by {diff(eb[0], blur_p)}")
+
+    f, c = cluster_rochade(blur_p, thr, h, w)
+    pf, pc = cluster_rochade_plain(blur_p, thr, h, w)
+    cl_err = hold("cluster_rochade", (c, *sort_candidates(f)), (pc, *sort_candidates(pf)))
+    print(f"kernels {name} {tuple(frames.shape[1:])} b{batch} planes: fused_frontend "
+          f"(cropped, padded, pre-padded), gray_kernel, front_kernel[emit_blur], "
+          f"cluster_rochade ({int(c[0, 0].item())} accepted/frame) bit-equal to "
+          "their plain versions", flush=True)
+
+    px = batch * blur_p.shape[1] * blur_p.shape[2]
+    nbytes = lambda *ts: float(sum(t.numel() * t.element_size() for t in ts))  # noqa: E731
+    blur, resp = fused_frontend(luma, sigma)
+    rec[name].update({
+        "fused": dict(
+            err=fu_err, ms=_ms(lambda: fused_frontend(luma, sigma), 20),
+            plain_ms=_ms(lambda: fused_frontend_plain(luma, sigma), 2),
+            bound=_bound_ms(nbytes(luma, blur, resp), STENCIL_OPS * px),
+        ),
+        "gray": dict(
+            err=gr_err, ms=_ms(lambda: gray_kernel(frames), 20),
+            plain_ms=_ms(lambda: gray_kernel_plain(frames), 2),
+            bound=_bound_ms(nbytes(frames, *gr), 10.0 * px),   # both lumas <= 10
+        ),
+        "front_emit_blur": dict(
+            err=eb_err, ms=_ms(lambda: front_kernel(*args), 20),
+            plain_ms=_ms(lambda: front_kernel_plain(*args), 2),
+            bound=_bound_ms(nbytes(raw_p, *eb), (5.0 + STENCIL_OPS) * px),
+        ),
+        "cluster_blur": dict(
+            err=cl_err, ms=_ms(lambda: cluster_rochade(blur_p, thr, h, w), 10),
+            plain_ms=_ms(lambda: cluster_rochade_plain(blur_p, thr, h, w), 1),
+            # Hessian + compare per pixel, a fit per component
+            bound=_bound_ms(nbytes(blur_p, thr, f, c), 14.0 * px + batch * roots * FIT_OPS),
+        ),
+    })
+
+
 def nms_tie_break_check() -> None:
     """The NMS kernel on a plane with planted equal responses: a 3-pixel
     checkerboard maps onto itself under shifts by (3, +-3), so pixels 3
@@ -464,11 +578,14 @@ def nms_tie_break_check() -> None:
     print("kernels nms_extract_raw tie-break plane 96x128: 20 peaks, = plain", flush=True)
 
 
-def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str) -> None:
+def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str,
+              golden: int | None = None) -> None:
     """One measured ``detect_batch`` on ``batch`` copies of ``img``: golden
-    count on every frame, ID set equal to ``ref``'s, corners within 1e-3 px
-    of it; prints the time."""
+    count (``GOLDEN[name]`` unless given) on every frame, ID set equal to
+    ``ref``'s, corners within 1e-3 px of it; prints the time."""
     import torch
+
+    golden = GOLDEN[name] if golden is None else golden
 
     frames = np.stack([img] * batch)
     t0 = torch.cuda.Event(enable_timing=True)
@@ -480,8 +597,8 @@ def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str)
     ms = t0.elapsed_time(t1)
     err = 0.0
     for i, tags in enumerate(res):
-        if len(tags) != GOLDEN[name]:
-            raise AssertionError(f"{label} {name} frame {i}: {len(tags)} tags, golden {GOLDEN[name]}")
+        if len(tags) != golden:
+            raise AssertionError(f"{label} {name} frame {i}: {len(tags)} tags, golden {golden}")
         if set(tags) != set(ref):
             raise AssertionError(f"{label} {name} frame {i}: ID set differs from the CPU run")
         err = max(err, max(
@@ -489,7 +606,7 @@ def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str)
         ))
     if err > 1e-3:
         raise AssertionError(f"{label} {name}: corners {err} px from the CPU run")
-    print(f"e2e {label} {name} {img.shape} b{batch}: {GOLDEN[name]} tags on every frame, "
+    print(f"e2e {label} {name} {img.shape} b{batch}: {golden} tags on every frame, "
           f"= CPU run (max corner diff {err:.2e} px); {ms:.2f} ms, "
           f"{batch / ms * 1e3:.1f} frames/s [{card}]", flush=True)
 
@@ -565,6 +682,223 @@ def phase_end_to_end(card: str, batch: int) -> dict:
     return launches
 
 
+def phase_split_chain(card: str, batch: int) -> dict:
+    """The JAX package's kernel-level chains, at full width on the card:
+    ``gray_kernel -> fused_frontend(crop=False, emit_resp=False) ->
+    threshold -> cluster_rochade`` and ``front_kernel(emit_blur=True) ->
+    cluster_rochade`` must reproduce ``front_kernel ->
+    cluster_rochade_raw`` bit for bit, and their gated saddles must be
+    ``saddle_frontend_batch``'s. Returns the launches of this path."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        cluster_rochade,
+        cluster_rochade_raw,
+        saddles_from_candidates,
+        sort_candidates,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel,
+        fused_frontend,
+        gray_kernel,
+        pad_raw,
+    )
+    from aprilgrid_tpu_torch.pipeline import _gated, saddle_frontend_batch
+
+    sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    reset_launches()
+    for name in GOLDEN:
+        img = torch.from_numpy(read_png(DATA / f"{name}.png")).cuda()
+        frames = img[None].expand(batch, *img.shape).contiguous()
+        h, w = frames.shape[1:3]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        luma_f, g8 = gray_kernel(frames)
+        blur_p, tmin = fused_frontend(luma_f, sigma, crop=False, true_shape=(h, w),
+                                      emit_resp=False)
+        thr = tmin.amin(-1) * ratio
+        f, c = cluster_rochade(blur_p, thr, h, w)
+        saddles = _gated(saddles_from_candidates(f), *cfg)
+        t1.record()
+
+        raw_p, _, _, ch, u16 = pad_raw(frames)
+        eb, e8, emin = front_kernel(raw_p, sigma, (h, w), ch, u16, emit_blur=True)
+        ef, ec = cluster_rochade(eb, emin.amin(-1) * ratio, h, w)
+
+        l8, rmin = front_kernel(raw_p, sigma, (h, w), ch, u16)
+        rf, rc = cluster_rochade_raw(raw_p, rmin.amin(-1) * ratio, h, w, ch, u16, sigma)
+        ref, rl8, _ = saddle_frontend_batch(frames, *cfg)
+        torch.cuda.synchronize()
+        (sf, _), (sef, _), (srf, _) = (sort_candidates(x) for x in (f, ef, rf))
+        same = (
+            torch.equal(g8, l8) and torch.equal(e8, l8) and torch.equal(rl8, l8)
+            and torch.equal(tmin, rmin) and torch.equal(emin, rmin)
+            and torch.equal(eb, blur_p) and torch.equal(c, rc) and torch.equal(ec, rc)
+            and torch.equal(sf, srf) and torch.equal(sef, srf)
+            and all(torch.equal(a, b) for a, b in zip(saddles, ref))
+        )
+        if not same:
+            raise AssertionError(
+                f"split chain {name}: differs from the fused chain (fields max |diff| "
+                f"{(sf - srf).abs().max().item()} / {(sef - srf).abs().max().item()}, "
+                f"counts {c[0].tolist()} / {ec[0].tolist()} vs {rc[0].tolist()})"
+            )
+        print(f"split chain {name} b{batch}: gray_kernel -> fused_frontend -> "
+              f"cluster_rochade and front_kernel[emit_blur] -> cluster_rochade = "
+              f"front_kernel -> cluster_rochade_raw bit for bit "
+              f"({int(rc[0, 0].item())} candidates, {int(ref.valid[0].sum())} saddles/frame); "
+              f"split front-end {t0.elapsed_time(t1):.3f} ms [{card}]", flush=True)
+    return {k: LAUNCHES[k] for k in ("gray_kernel", "fused_frontend", "cluster_rochade",
+                                     "front_kernel[emit_blur]")}
+
+
+def _canvas(img: np.ndarray, side: int = 4096) -> np.ndarray:
+    """``img`` set into a ``side`` x ``side`` mid-gray RGB frame; at 4096,
+    h*w = 2^24 is the first size outside the fused kernels' label domain."""
+    canvas = np.full((side, side, 3), 128, np.uint8)
+    canvas[1500 : 1500 + img.shape[0], 1000 : 1000 + img.shape[1]] = img
+    return canvas
+
+
+def phase_plane_path(card: str, batch: int) -> dict:
+    """The plane path at full width: ``planes_frontend_batch`` against its
+    own CPU run, then through the facade on frames outside the label
+    domain and through ``refined_saddle_points``. Returns the launches of
+    ``fused_frontend`` and ``sparse_refine_raw`` on this path."""
+    import warnings
+
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.kernels.frontend import fused_frontend
+    from aprilgrid_tpu_torch.ops.frontend import decimate2
+    from aprilgrid_tpu_torch.ops.gray import to_luma_batch
+    from aprilgrid_tpu_torch.pipeline import (
+        frontend_packed,
+        planes_frontend_batch,
+        saddle_frontend_batch,
+    )
+
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    imgs = {n: read_png(DATA / f"{n}.png") for n in TURBO}
+    # launches of the held runs only: timing runs do not count
+    launches = {"fused_frontend": 0, "sparse_refine_raw": 0}
+
+    def count():
+        for k in launches:
+            launches[k] += LAUNCHES[k]
+    for n, img in imgs.items():
+        one = torch.from_numpy(img)[None]
+        frames = one.cuda().expand(batch, *img.shape).contiguous()
+        for dec in (False, True):
+            label = "turbo" if dec else "exact"
+            want, wl8, wcnt = planes_frontend_batch(one, *cfg, dec)   # the CPU run
+            reset_launches()
+            got, l8, cnt = planes_frontend_batch(frames, *cfg, dec)
+            torch.cuda.synchronize()
+            # the turbo tail re-refines through the refine kernel
+            if LAUNCHES["fused_frontend"] != 1 or LAUNCHES["sparse_refine_raw"] != int(dec):
+                raise AssertionError(
+                    f"plane path {label} {n}: {LAUNCHES['fused_frontend']} fused_frontend "
+                    f"and {LAUNCHES['sparse_refine_raw']} sparse_refine_raw launches "
+                    f"(expected 1 and {int(dec)})")
+            count()
+            err = (got.p.cpu() - want.p).abs().max().item()
+            if not (torch.equal(got.valid.cpu(), want.valid.expand(batch, -1))
+                    and torch.equal(l8.cpu(), wl8.expand(batch, -1, -1))
+                    and torch.equal(cnt.cpu(), wcnt.expand(batch, -1)) and err <= 1e-3):
+                raise AssertionError(
+                    f"plane path {label} {n}: {int(got.valid[0].sum())} saddles vs "
+                    f"{int(want.valid[0].sum())} on the CPU, positions {err} px apart")
+            ms = _ms(lambda: planes_frontend_batch(frames, *cfg, dec), 3)
+            luma = to_luma_batch(frames)[0]
+            luma = (decimate2(luma) if dec else luma).contiguous()
+            fms = _ms(lambda: fused_frontend(luma, CONSTANTS.blur_sigma), 10)
+            fused, _, _ = saddle_frontend_batch(frames, *cfg, decimate=dec, nms=False)
+            if torch.equal(fused.valid, got.valid):
+                gap = f"the same, within {(got.p - fused.p).abs().max().item():.2e} px"
+            else:
+                gap = f"{int(fused.valid[0].sum())}"
+            print(f"plane path {label} {n} b{batch}: {int(got.valid[0].sum())} saddles/"
+                  f"frame = CPU run (max position diff {err:.2e} px); {ms:.3f} ms, of "
+                  f"which fused_frontend {fms:.4f} ms ({100 * fms / ms:.1f} %); the fused "
+                  f"path finds {gap} [{card}]", flush=True)
+
+    # through the facade: 4096 x 4096 frames are outside the label domain
+    canvas = _canvas(imgs["two_boards"])
+    gpu = TagDetector("t36h11", device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ref = TagDetector("t36h11", device="cpu").detect(canvas)
+        gpu.detect_batch(np.stack([canvas] * 4))  # warm-up
+        reset_launches()
+        _held_run(gpu, "two_boards on a 4096^2 canvas", canvas, ref, 4, card, "planes",
+                  golden=GOLDEN["two_boards"])
+    if not any("plane path" in str(w.message) for w in caught):
+        raise AssertionError("the out-of-domain frames raised no plane-path warning")
+    if LAUNCHES["fused_frontend"] <= 0 or LAUNCHES["cluster_rochade_raw"] != 0:
+        raise AssertionError(
+            f"out-of-domain detect_batch: fused_frontend launched "
+            f"{LAUNCHES['fused_frontend']} times, cluster_rochade_raw "
+            f"{LAUNCHES['cluster_rochade_raw']} (expected > 0 and 0)")
+    count()
+
+    # one whole chunk of the facade (16 frames at this size) of a frame
+    # size that is no multiple of the kernels' 64 x 128 tiles, with the
+    # device memory it peaks at
+    canvas = _canvas(imgs["two_boards"], 4100)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = TagDetector("t36h11", device="cpu").detect(canvas)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _held_run(gpu, "two_boards on a 4100^2 canvas", canvas, ref, 16, card, "planes",
+                  golden=GOLDEN["two_boards"])
+    if LAUNCHES["fused_frontend"] != 1 or LAUNCHES["cluster_rochade_raw"] != 0:
+        raise AssertionError(
+            f"4100^2 detect_batch: {LAUNCHES['fused_frontend']} fused_frontend launches, "
+            f"{LAUNCHES['cluster_rochade_raw']} of cluster_rochade_raw (expected 1 and 0)")
+    count()
+    print(f"plane path 16 x 4100^2 (one chunk, {16 * 4100 * 4100} pixels): peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+
+    reset_launches()
+    two = imgs["two_boards"]
+    pts = gpu.refined_saddle_points(two)
+    cpts = TagDetector("t36h11", device="cpu").refined_saddle_points(two)
+    err = max(abs(a - b) for s, t in zip(pts, cpts) for a, b in zip(s.p, t.p))
+    if LAUNCHES["fused_frontend"] != 1 or len(pts) != len(cpts) or err > 1e-3:
+        raise AssertionError(
+            f"refined_saddle_points: {len(pts)} saddles vs {len(cpts)} on the CPU, "
+            f"{err} px apart, {LAUNCHES['fused_frontend']} fused_frontend launches")
+    count()
+
+    def wall_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    # the call as a user makes it (host array in, records out), beside the
+    # fused kernels' front-end on the same single frame, copies included
+    ms = wall_ms(lambda: gpu.refined_saddle_points(two))
+    fms = wall_ms(lambda: frontend_packed(torch.from_numpy(two)[None].cuda(), *cfg)[0].cpu())
+    print(f"refined_saddle_points two_boards: {len(pts)} saddles = CPU run (max position "
+          f"diff {err:.2e} px), 1 fused_frontend launch; {ms:.3f} ms per call (host "
+          f"clock), the fused front-end on one frame {fms:.3f} ms [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -580,6 +914,9 @@ def main() -> int:
     if args.kernels_only:
         return 0
     launches = phase_end_to_end(card, batch=32)
+    launches.update(phase_split_chain(card, batch=32))
+    for k, n in phase_plane_path(card, batch=32).items():
+        launches[k] += n
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
     jp = "aprilgrid_tpu/pallas/"
@@ -603,6 +940,14 @@ def main() -> int:
          tb["nms"], worst("nms", GOLDEN)),
         ("sparse_refine_raw", "refine.cu", "refine.py:254",
          tb["refine"], worst("refine", GOLDEN)),
+        ("fused_frontend", "frontend.cu", "frontend.py:884",
+         tb["fused"], worst("fused", GOLDEN)),
+        ("gray_kernel", "frontend.cu", "frontend.py:88",
+         tb["gray"], worst("gray", GOLDEN)),
+        ("cluster_rochade", "cluster.cu", "cluster.py:845",
+         tb["cluster_blur"], worst("cluster_blur", GOLDEN)),
+        ("front_kernel[emit_blur]", "frontend.cu", "frontend.py:357",
+         tb["front_emit_blur"], worst("front_emit_blur", GOLDEN)),
     ]
     kernels = []
     for name, src, replaces, r, err in rows:

@@ -18,9 +18,14 @@ from aprilgrid_tpu_torch import TagDetector
 from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
 from aprilgrid_tpu_torch.convert import family_from_numpy, params_from_dict
 from aprilgrid_tpu_torch.families import TagFamily, get_family
-from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade_raw
+from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade, cluster_rochade_raw
 from aprilgrid_tpu_torch.kernels.decode import hamming_scan
-from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate
+from aprilgrid_tpu_torch.kernels.frontend import (
+    front_kernel,
+    front_kernel_decimate,
+    fused_frontend,
+    gray_kernel,
+)
 from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw
 from aprilgrid_tpu_torch.kernels.refine import sparse_refine_raw
 
@@ -32,7 +37,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, aprilgrid_tpu_torch, aprilgrid_tpu_torch.detector, "
         "aprilgrid_tpu_torch.convert, aprilgrid_tpu_torch.kernels.nms, "
-        "aprilgrid_tpu_torch.kernels.refine, aprilgrid_tpu_torch.kernels._fit\n"
+        "aprilgrid_tpu_torch.kernels.refine, aprilgrid_tpu_torch.kernels._fit, "
+        "aprilgrid_tpu_torch.kernels.frontend, aprilgrid_tpu_torch.kernels.cluster, "
+        "aprilgrid_tpu_torch.ops.cluster, aprilgrid_tpu_torch.pipeline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
@@ -58,7 +65,8 @@ def test_detector_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["front", "cluster", "hamming", "front_decimate",
-                                  "cluster_f32", "nms", "refine"])
+                                  "cluster_f32", "nms", "refine", "fused", "gray",
+                                  "cluster_blur", "front_emit_blur"])
 def test_wrappers_never_fall_back(name):
     """A tensor on a device the wrapper does not serve is an error, not a
     quiet plain run."""
@@ -66,6 +74,19 @@ def test_wrappers_never_fall_back(name):
     if name == "front":
         raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
         call = lambda: front_kernel(raw, 1.5, (64, 128), 1, False)  # noqa: E731
+    elif name == "front_emit_blur":
+        raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
+        call = lambda: front_kernel(raw, 1.5, (64, 128), 1, False, emit_blur=True)  # noqa: E731
+    elif name == "fused":
+        luma = torch.empty((1, 60, 100), dtype=torch.float32, device=meta)
+        call = lambda: fused_frontend(luma, 1.5)  # noqa: E731
+    elif name == "gray":
+        img = torch.empty((1, 60, 100, 3), dtype=torch.uint8, device=meta)
+        call = lambda: gray_kernel(img)  # noqa: E731
+    elif name == "cluster_blur":
+        blur = torch.empty((1, 64, 128), dtype=torch.float32, device=meta)
+        thr = torch.empty((1,), dtype=torch.float32, device=meta)
+        call = lambda: cluster_rochade(blur, thr, 60, 100)  # noqa: E731
     elif name == "cluster":
         raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
         thr = torch.empty((1,), dtype=torch.float32, device=meta)
@@ -127,6 +148,11 @@ def test_params_round_trip():
     custom = dataclasses.asdict(jconfig.DetectorParams(max_num_of_boards=1))
     assert params_from_dict(custom, dataclasses.asdict(jconfig.CONSTANTS),
                             {})[0].max_num_of_boards == 1
+    # the plane path's capacities are public API and carry across
+    jcaps = jconfig.Capacities(max_clusters=8, max_masked=64, label_prop_rounds=1)
+    caps = params_from_dict({}, {}, dataclasses.asdict(jcaps))[2]
+    assert (caps.max_clusters, caps.max_masked, caps.label_prop_rounds) == (8, 64, 1)
+    assert dataclasses.asdict(caps) == dataclasses.asdict(jcaps)
     with pytest.raises(ValueError):
         params_from_dict({"nope": 1}, {}, {})
 
