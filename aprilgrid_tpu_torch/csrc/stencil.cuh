@@ -166,19 +166,23 @@ __device__ __forceinline__ void blur_tile_plane(TileSmem& s,
   blur_passes(s, taps);
 }
 
-// Hessian determinant at the blur value ``p`` points to, in a plane (or
-// tile) of row stride ``stride``, all eight neighbours readable: the
-// reference stencil (src/image_util.rs:72-109) in its op order.
-__device__ __forceinline__ float hessian_ptr(const float* p, int stride) {
-  float c = p[0];
-  float left = p[-1], right = p[1];
-  float up = p[-stride], down = p[stride];
-  float ul = p[-stride - 1], ur = p[-stride + 1];
-  float dl = p[stride - 1], dr = p[stride + 1];
+// Hessian determinant from the 3x3 blur values around a pixel (upper row,
+// own row, lower row, each left to right): the reference stencil
+// (src/image_util.rs:72-109) in its op order.
+__device__ __forceinline__ float hessian_of(float ul, float up, float ur,
+                                            float left, float c, float right,
+                                            float dl, float down, float dr) {
   float lxx = __fadd_rn(__fsub_rn(left, __fmul_rn(2.0f, c)), right);
   float lyy = __fadd_rn(__fsub_rn(up, __fmul_rn(2.0f, c)), down);
   float lxy = __fmul_rn(__fsub_rn(__fadd_rn(__fsub_rn(ur, ul), dl), dr), 0.25f);
   return __fsub_rn(__fmul_rn(lxx, lyy), __fmul_rn(lxy, lxy));
+}
+
+// The same at the blur value ``p`` points to, in a plane (or tile) of row
+// stride ``stride``, all eight neighbours readable.
+__device__ __forceinline__ float hessian_ptr(const float* p, int stride) {
+  return hessian_of(p[-stride - 1], p[-stride], p[-stride + 1], p[-1], p[0],
+                    p[1], p[stride - 1], p[stride], p[stride + 1]);
 }
 
 // The same at blurred-tile entry (y, x) (1 <= y, x).

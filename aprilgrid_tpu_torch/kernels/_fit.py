@@ -5,6 +5,7 @@ of taps both the kernels and their plain versions evaluate."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 from ..ops.rochade import fit_taps
 
@@ -27,7 +28,9 @@ class FitTaps(ctypes.Structure):
     ]
 
 
+@functools.lru_cache(maxsize=None)
 def fit_struct(half_patch: int) -> FitTaps:
+    """The table for ``half_patch``, built once; callers only read it."""
     cone, fits = fit_taps(half_patch)
     s = FitTaps()
     s.n_cone = len(cone)

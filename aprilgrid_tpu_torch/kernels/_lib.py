@@ -5,8 +5,10 @@ All ``csrc/*.cu`` sources compile in parallel, one ``nvcc -c`` each, for
 f32 op sequence; a contracted a*b+c would round differently), and link
 into one shared library with a plain C interface. The library lands in the
 package's ``build/`` directory (listed in ``.gitignore``), named by a hash
-of the sources and flags, on first use; later calls load it. Nothing here
-runs at import time.
+of the sources and flags, on first use; later calls load it. What ptxas
+says of each kernel (``-Xptxas -v``: registers, stack frame, spills) is
+kept beside the library; ``kernel_resources`` reads it. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +29,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -61,9 +64,10 @@ def build() -> Path:
             )
             for s, o in zip(sources, objs)
         ]
-        errors = []
+        errors, said = [], []
         for s, p in zip(sources, procs):
             out, _ = p.communicate()
+            said.append(f"== {s.name}\n{out}")
             if p.returncode != 0:
                 errors.append(f"{s.name}:\n{out}")
         if errors:
@@ -75,10 +79,39 @@ def build() -> Path:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        lib.with_suffix(".ptxas.txt").write_text("\n".join(said))
         os.replace(tmp, lib)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+def parse_ptxas(text: str) -> list[dict]:
+    """The kernels of one ``nvcc -Xptxas -v`` report: name, registers,
+    bytes of stack frame (local memory), spill stores and spill loads,
+    static shared memory."""
+    found = re.findall(
+        r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
+        r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers([^\n]*)",
+        text, re.S,
+    )
+    out = []
+    for mangled, stack, st, ld, regs, rest in found:
+        name = re.findall(r"\d+([a-z][a-z_]*_kernel)", mangled)
+        smem = re.search(r"(\d+) bytes smem", rest)
+        out.append({
+            "kernel": name[-1] if name else mangled, "registers": int(regs),
+            "stack_bytes": int(stack), "spill_store_bytes": int(st),
+            "spill_load_bytes": int(ld), "smem_bytes": int(smem.group(1)) if smem else 0,
+        })
+    return out
+
+
+def kernel_resources(source: str) -> list[dict]:
+    """What ptxas reported for each kernel of ``csrc/<source>`` in the
+    current build (``parse_ptxas``)."""
+    text = build().with_suffix(".ptxas.txt").read_text()
+    return parse_ptxas(text.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,11 +126,11 @@ def lib() -> ctypes.CDLL:
     handle.ag_gray_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p]
     handle.ag_cluster_rochade_raw.restype = i
     handle.ag_cluster_rochade_raw.argtypes = [
-        p, i, i, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p, p, i, p,
+        p, i, i, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p, p, p, p, i, p,
     ]
     handle.ag_cluster_rochade.restype = i
     handle.ag_cluster_rochade.argtypes = [
-        p, i, i, i, i, i, p, p, f, i, p, p, p, p, p, i, p,
+        p, i, i, i, i, i, p, p, f, i, p, p, p, p, p, p, p, i, p,
     ]
     handle.ag_front_kernel_decimate.restype = i
     handle.ag_front_kernel_decimate.argtypes = [

@@ -2,9 +2,11 @@
 
 ``cluster_rochade_raw`` replaces the JAX package's
 ``pallas/cluster.py::cluster_rochade_raw``. On a CUDA tensor it launches
-``csrc/cluster.cu`` (four launches behind one wrapper: blur + mask,
-union-find, member sums, per-root record + append; the source's head notes
-what bounds it and how the design answers); on a CPU tensor it runs
+``csrc/cluster.cu`` (five launches behind one wrapper: blur + mask over the
+pixels, which also starts a compact list of the masked pixels; then
+union-find, root list, member sums over that list and a warp per root for
+record + append; the source's head notes what bounds it and how the design
+answers); on a CPU tensor it runs
 ``cluster_rochade_raw_plain``, built from ops/frontend.py, ops/cluster.py
 and ops/rochade.py. Its ``luma_f32`` mode (the turbo path's drain variant)
 reads an f32 half-resolution luma plane instead of raw pixels.
@@ -12,8 +14,8 @@ reads an f32 half-resolution luma plane instead of raw pixels.
 ``cluster_rochade`` replaces ``pallas/cluster.py::cluster_rochade``, the
 blur-fed twin: it takes the padded f32 blur plane (``front_kernel(...,
 emit_blur=True)`` or ``fused_frontend(..., crop=False)``) and skips the
-gray + blur stencil; mask, union-find, member sums, record and append are
-the same launches. Fed the blur of the same frame it returns what
+gray + blur stencil (its dense launch is the mask alone); the list
+launches are the same. Fed the blur of the same frame it returns what
 ``cluster_rochade_raw`` returns, bit for bit after ``sort_candidates``.
 
 Differences from the TPU kernel, by design:
@@ -59,39 +61,46 @@ _CAPF = 1024  # accepted-candidate capacity PER FRAME (append-compacted)
 _MODE_F32 = 2  # csrc/stencil.cuh: the frame is an f32 luma plane
 
 
-def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
-                            hp2: int = 4, move_thr: float = 1.0):
-    """Plain cluster + ROCHADE on (B, h, w) blur planes: mask
-    ``resp < thr`` inside the image's zero border, label the 4-connected
-    components, round each centroid, gate the 9x9 support on the image
-    and fit. Returns what ``cluster_rochade_raw`` returns, rows in scan
-    order."""
-    b, h, w = blur.shape
+def candidate_rows_plain(blur: torch.Tensor, thr: torch.Tensor,
+                         hp2: int = 4, move_thr: float = 1.0) -> torch.Tensor:
+    """Every accepted candidate row (K, 8) of one (h, w) blur plane, in
+    scan order and before the capacity cut: mask ``resp < thr`` inside the
+    image's zero border, label the 4-connected components, round each
+    centroid, gate the 9x9 support on the image and fit."""
+    h, w = blur.shape
     dev = blur.device
     resp = hessian_response(blur)
     r = torch.arange(h, device=dev)[:, None]
     c = torch.arange(w, device=dev)[None, :]
-    inner = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1)
-    mask = inner & (resp < thr[:, None, None])
-    fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=dev)
-    counts = torch.zeros((b, 2), dtype=torch.float32, device=dev)
+    mask = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1) & (resp < thr)
+    root, centers = cluster_centroids(mask)
+    rx = rust_round(centers[:, 0]).to(torch.int64)
+    ry = rust_round(centers[:, 1]).to(torch.int64)
+    in_b = (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
+    x0, y0, c3, c4, c5, ok = fit_record(
+        gather_patches(blur, rx, ry, hp2 // 2), hp2 // 2, move_thr
+    )
+    rows = torch.stack(
+        [
+            rx.to(torch.float32) + x0, ry.to(torch.float32) + y0,
+            torch.zeros_like(x0), c3, c4, c5, torch.ones_like(x0),
+            (root + 1).to(torch.float32),
+        ],
+        -1,
+    )
+    return rows[in_b & ok]
+
+
+def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
+                            hp2: int = 4, move_thr: float = 1.0):
+    """Plain cluster + ROCHADE on (B, h, w) blur planes
+    (``candidate_rows_plain`` per frame, cut to the capacity). Returns what
+    ``cluster_rochade_raw`` returns, rows in scan order."""
+    b = blur.shape[0]
+    fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=blur.device)
+    counts = torch.zeros((b, 2), dtype=torch.float32, device=blur.device)
     for i in range(b):
-        root, centers = cluster_centroids(mask[i])
-        rx = rust_round(centers[:, 0]).to(torch.int64)
-        ry = rust_round(centers[:, 1]).to(torch.int64)
-        in_b = (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
-        x0, y0, c3, c4, c5, ok = fit_record(
-            gather_patches(blur[i], rx, ry, hp2 // 2), hp2 // 2, move_thr
-        )
-        acc = in_b & ok
-        rows = torch.stack(
-            [
-                rx.to(torch.float32) + x0, ry.to(torch.float32) + y0,
-                torch.zeros_like(x0), c3, c4, c5, torch.ones_like(x0),
-                (root + 1).to(torch.float32),
-            ],
-            -1,
-        )[acc][:_CAPF]
+        rows = candidate_rows_plain(blur[i], thr[i], hp2, move_thr)[:_CAPF]
         fields[i, : rows.shape[0]] = rows
         counts[i, 0] = rows.shape[0]
     return fields, counts
@@ -140,20 +149,19 @@ def cluster_rochade_raw(
     h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
     thr = thr.contiguous()
     blur = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=raw_p.device)
-    labels, cnt, sums, napp, fields = _scratch(blur)
+    scratch = _scratch(blur)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
     err = lib().ag_cluster_rochade_raw(
         raw_p.data_ptr(), b, h_pad, w_pad, channels,
         _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(),
         ctypes.addressof(taps), ctypes.addressof(fit),
-        float(move_thr), hp2, blur.data_ptr(), labels.data_ptr(),
-        cnt.data_ptr(), sums.data_ptr(), napp.data_ptr(), fields.data_ptr(),
-        _CAPF, stream_of(raw_p),
+        float(move_thr), hp2, blur.data_ptr(),
+        *(t.data_ptr() for t in scratch), _CAPF, stream_of(raw_p),
     )
     check(err, "cluster_rochade_raw")
     LAUNCHES["cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"] += 1
-    return fields, _counts(napp)
+    return _results(scratch)
 
 
 def _check_fit_args(name: str, frames: torch.Tensor, thr: torch.Tensor,
@@ -177,21 +185,32 @@ def _check_fit_args(name: str, frames: torch.Tensor, thr: torch.Tensor,
 
 def _scratch(blur: torch.Tensor):
     """Device scratch and outputs of the component launches for a
-    (B, Hp, Wp) blur plane: labels, cnt, sums, napp, fields."""
+    (B, Hp, Wp) blur plane: ``labels`` and the masked-pixel list ``plist``
+    (a pixel each), the root list ``rlist`` with the member count ``cnt``
+    and the row/column sums ``sums`` per root slot (half the pixels: two
+    horizontal neighbours never root two components), the zeroed cursors
+    ``ctr`` (3, B) — pixels listed, roots listed, rows appended — and the
+    zeroed ``fields``, in the order of the C entries' arguments. Only list
+    entries in use are ever touched."""
     b, dev = blur.shape[0], blur.device
+    half = blur.shape[1] * blur.shape[2] // 2
     labels = torch.empty(blur.shape, dtype=torch.int32, device=dev)
-    cnt = torch.empty(blur.shape, dtype=torch.int32, device=dev)
-    sums = torch.empty((*blur.shape, 2), dtype=torch.int64, device=dev)
-    napp = torch.zeros((b,), dtype=torch.int32, device=dev)
+    plist = torch.empty(blur.shape, dtype=torch.int32, device=dev)
+    rlist = torch.empty((b, half), dtype=torch.int32, device=dev)
+    cnt = torch.empty((b, half), dtype=torch.int32, device=dev)
+    sums = torch.empty((b, half, 2), dtype=torch.int64, device=dev)
+    ctr = torch.zeros((3, b), dtype=torch.int32, device=dev)
     fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=dev)
-    return labels, cnt, sums, napp, fields
+    return labels, plist, rlist, cnt, sums, ctr, fields
 
 
-def _counts(napp: torch.Tensor) -> torch.Tensor:
-    return torch.stack(
-        [torch.clamp(napp, max=_CAPF).to(torch.float32),
-         torch.zeros(napp.shape, dtype=torch.float32, device=napp.device)], 1,
-    )
+def _results(scratch):
+    """What the wrappers return, from the scratch the launches filled:
+    the fields and the counters [rows appended, capped at the capacity; 0]."""
+    ctr, fields = scratch[-2:]
+    counts = torch.zeros((fields.shape[0], 2), dtype=torch.float32, device=fields.device)
+    counts[:, 0] = torch.clamp(ctr[2], max=_CAPF)
+    return fields, counts
 
 
 def cluster_rochade_plain(blur: torch.Tensor, thr: torch.Tensor, h: int, w: int,
@@ -225,17 +244,16 @@ def cluster_rochade(
         return cluster_rochade_plain(blur, thr, h, w, hp2, move_thr)
     require_cuda(blur, "cluster_rochade")
     thr = thr.contiguous()
-    labels, cnt, sums, napp, fields = _scratch(blur)
+    scratch = _scratch(blur)
     fit = fit_struct(hp2 // 2)
     err = lib().ag_cluster_rochade(
         blur.data_ptr(), blur.shape[0], hp, wp, h, w, thr.data_ptr(),
-        ctypes.addressof(fit), float(move_thr), hp2, labels.data_ptr(),
-        cnt.data_ptr(), sums.data_ptr(), napp.data_ptr(), fields.data_ptr(),
-        _CAPF, stream_of(blur),
+        ctypes.addressof(fit), float(move_thr), hp2,
+        *(t.data_ptr() for t in scratch), _CAPF, stream_of(blur),
     )
     check(err, "cluster_rochade")
     LAUNCHES["cluster_rochade"] += 1
-    return fields, _counts(napp)
+    return _results(scratch)
 
 
 def sort_candidates(fields: torch.Tensor):

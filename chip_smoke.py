@@ -22,7 +22,12 @@ Phases (a failing phase raises, so the script exits non-zero):
    with planted equal responses; the plane path's kernels
    (``fused_frontend`` cropped and padded, ``gray_kernel``, the front
    kernel's ``emit_blur`` mode, the blur-fed ``cluster_rochade``) on every
-   image at batch 32;
+   image at batch 32; both cluster entries on synthetic masks no
+   photograph produces (spiral, comb, checkerboard of single pixels, one
+   blob over the whole interior, empty, more accepted roots than rows,
+   noise), a different mask in each frame of one batch; then the device
+   time of each launch of the three cluster entries on two_boards
+   (torch.profiler) with what ptxas reported for their kernels;
 3. end to end: ``detect_batch`` at batch 32 on EuRoC, TUM_VI, iphone and
    two_boards — golden tag counts on every frame, ID sets and corners
    against the port's own CPU run, frames/s timed with CUDA events; then
@@ -39,13 +44,15 @@ Phases (a failing phase raises, so the script exits non-zero):
    and not through the cluster kernel; one 16-frame chunk of 4100 x 4100
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
-6. one JSON line with each kernel's launches in phases 3-5 (counted per
-   path: zeroed before it, read after it), its error against the plain
-   version, its time, the plain version's time and its bound.
+6. a line with the cluster entries' per-launch split, then one JSON line
+   with each kernel's launches in phases 3-5 (counted per path: zeroed
+   before it, read after it), its error against the plain version, its
+   time, the plain version's time and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
-phase 2, for a first check of new kernels).
+phase 2, for a first check of new kernels; ``--cluster-only`` runs phase 2
+on two_boards alone, for work on the cluster kernels).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -179,11 +187,11 @@ def phase_build() -> str:
     return card
 
 
-def phase_kernels(card: str, batch: int) -> dict:
+def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     """Each kernel against its plain version on the same CUDA tensors, on
-    every golden image at the main path's chunk size; the turbo path's
-    kernels at that size on its own frames (``TURBO``) and at a quarter of
-    it on the other raw modes."""
+    every golden image (``names``) at the main path's chunk size; the turbo
+    path's kernels at that size on its own frames (``TURBO``) and at a
+    quarter of it on the other raw modes."""
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
@@ -206,7 +214,7 @@ def phase_kernels(card: str, batch: int) -> dict:
     dev = torch.device("cuda")
     sigma = CONSTANTS.blur_sigma
     rec: dict = {}
-    for name in GOLDEN:
+    for name in names:
         img = torch.from_numpy(read_png(DATA / f"{name}.png")).to(dev)
         frames = img[None].expand(batch, *img.shape).contiguous()
         raw_p, h, w, ch, u16 = pad_raw(frames)
@@ -272,6 +280,7 @@ def phase_kernels(card: str, batch: int) -> dict:
         turbo_kernels(name, frames if name in TURBO else frames[: batch // 4], rec)
         plane_kernels(name, frames, thr, roots, rec)
     nms_tie_break_check()
+    cluster_synthetic_check()
 
     spec = get_family("t36h11")
     codes = spec.code_bits_tensor(dev)
@@ -297,7 +306,7 @@ def phase_kernels(card: str, batch: int) -> dict:
         bound=_bound_ms(4.0 * (n_rows + n_codes) * nb + 8.0 * n_rows,
                         3.0 * n_rows * n_codes),
     )
-    timed = [(f"{n}.{k}", r) for n in GOLDEN
+    timed = [(f"{n}.{k}", r) for n in names
              for k, r in rec[n].items()] + [("hamming", rec["hamming"])]
     for key, r in timed:
         print(f"time {key}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
@@ -547,6 +556,211 @@ def plane_kernels(name: str, frames, thr, roots: int, rec: dict) -> None:
             bound=_bound_ms(nbytes(blur_p, thr, f, c), 14.0 * px + batch * roots * FIT_OPS),
         ),
     })
+
+
+def synthetic_blur_planes(h: int = 250, w: int = 380, seed: int = 0):
+    """Blur planes whose response masks no photograph produces, from
+    ``seed`` with numpy alone: ``(names, planes (B, h, w) f32, thr (B,)
+    f32)``, the mask of frame i being ``hessian_response(planes[i]) <
+    thr[i]`` inside the one-pixel border.
+
+    ``r * c`` has response exactly -1; set into 3-pixel strokes on a zero
+    plane it masks each stroke and a pixel either side of it, never the
+    middle of a gap of 4 or more: a rectangular *spiral* and a *comb* (a
+    spine with teeth), long components that cross every 64x64 tile
+    border. ``((-1)^c - (-1)^r) / 2`` has response -4 (-1)^(r + c): a
+    *checkerboard* of single-pixel components. ``r * c`` everywhere is one
+    blob over the *whole* interior; zeros give an *empty* mask; ``sin *
+    sin`` of period 16 has a true saddle every 8 pixels, more accepted
+    roots than a frame's 1024 rows (*lattice*); *noise* is a dense random
+    mask of irregular blobs."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(h, dtype=np.float32)[:, None]
+    c = np.arange(w, dtype=np.float32)[None, :]
+    saddle = r * c
+
+    def paint(on, y, x):
+        on[y - 1 : y + 2, x - 1 : x + 2] = True
+
+    spiral = np.zeros((h, w), bool)
+    pitch = int(rng.integers(8, 11))
+    y, x = 5 + int(rng.integers(0, 3)), 5 + int(rng.integers(0, 3))
+    run = [w - 2 * x, h - 2 * y]            # next horizontal, vertical run
+    step = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    turn = 0
+    while run[turn % 2] > pitch:
+        dy, dx = step[turn % 4]
+        for _ in range(run[turn % 2]):
+            paint(spiral, y, x)
+            y, x = y + dy, x + dx
+        if turn >= 1:
+            run[turn % 2] -= pitch
+        turn += 1
+
+    comb = np.zeros((h, w), bool)
+    comb[4:7, 4 : w - 4] = True
+    for x in range(5, w - 5, int(rng.integers(7, 10))):
+        comb[4 : h - 4 - int(rng.integers(0, 40)), x - 1 : x + 2] = True
+
+    checker = (np.where(c % 2 == 0, 1.0, -1.0) - np.where(r % 2 == 0, 1.0, -1.0)) / 2
+    lattice = np.sin(np.pi * r / 8) * np.sin(np.pi * c / 8)
+    noise = rng.standard_normal((h, w))
+
+    def resp(v):
+        v = v.astype(np.float32)
+        lxx = v[1:-1, :-2] - 2 * v[1:-1, 1:-1] + v[1:-1, 2:]
+        lyy = v[:-2, 1:-1] - 2 * v[1:-1, 1:-1] + v[2:, 1:-1]
+        lxy = (v[:-2, 2:] - v[:-2, :-2] + v[2:, :-2] - v[2:, 2:]) * 0.25
+        return lxx * lyy - lxy * lxy
+
+    frames = {
+        "spiral": (np.where(spiral, saddle, 0), -0.5),
+        "comb": (np.where(comb, saddle, 0), -0.5),
+        "checkerboard": (checker + 0 * saddle, -2.0),
+        "whole": (saddle, -0.5),
+        "empty": (0 * saddle, -1.0),
+        "lattice": (lattice, 0.5 * float(resp(lattice).min())),
+        "noise": (noise, float(np.quantile(resp(noise), 0.3))),
+    }
+    planes = np.stack([p for p, _ in frames.values()]).astype(np.float32)
+    thr = np.array([t for _, t in frames.values()], np.float32)
+    return tuple(frames), planes, thr
+
+
+def cluster_synthetic_check() -> None:
+    """Both cluster entries against their plain versions on the synthetic
+    planes, one batch with a different mask per frame: ``cluster_rochade``
+    on the planes as blur planes, ``cluster_rochade_raw(luma_f32=True)`` on
+    them as luma planes (it blurs them first, so its masks are the
+    smoothed shapes). Counts equal and sorted fields bit-equal; in a frame
+    whose accepted roots overflow the 1024 rows the kernel's rows are 1024
+    different rows of the plain version's uncut list."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        _CAPF,
+        candidate_rows_plain,
+        cluster_rochade,
+        cluster_rochade_plain,
+        cluster_rochade_raw,
+        cluster_rochade_raw_plain,
+        sort_candidates,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import _response_tile_min, pad_half
+    from aprilgrid_tpu_torch.ops.cluster import label_components
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+
+    sigma = CONSTANTS.blur_sigma
+    names, planes, thr = synthetic_blur_planes()
+    planes, thr = torch.from_numpy(planes).cuda(), torch.from_numpy(thr).cuda()
+    b, h, w = planes.shape
+    hp, wp = -(-h // 64) * 64, -(-w // 128) * 128
+    blur_p = torch.nn.functional.pad(planes, (0, wp - w, 0, hp - h))
+    half_p = pad_half(planes)
+    # the luma-fed entry thresholds the blurred planes: a share of each
+    # frame's own minimum, as the pipeline does (whole and empty keep theirs)
+    shares = {"spiral": 0.05, "comb": 0.05, "checkerboard": 0.5, "lattice": 0.5,
+              "noise": 0.3}
+    share = torch.tensor([shares.get(n, 0.0) for n in names], device="cuda")
+    rthr = _response_tile_min(half_p, sigma, (h, w)).amin(-1) * share
+    rthr = torch.where(share == 0.0, thr, rthr)
+    runs = (
+        ("cluster_rochade", planes, thr,
+         cluster_rochade(blur_p, thr, h, w), cluster_rochade_plain(blur_p, thr, h, w)),
+        ("cluster_rochade_raw[luma_f32]", gaussian_blur(planes, sigma), rthr,
+         cluster_rochade_raw(half_p, rthr, h, w, luma_f32=True),
+         cluster_rochade_raw_plain(half_p, rthr, h, w, luma_f32=True)),
+    )
+    torch.cuda.synchronize()
+    rr = torch.arange(h, device="cuda")[:, None]
+    cc = torch.arange(w, device="cuda")[None, :]
+    inner = (rr > 0) & (rr < h - 1) & (cc > 0) & (cc < w - 1)
+    index = torch.arange(h * w, device="cuda").reshape(h, w)
+    for entry, blur, t, (f, c), (pf, pc) in runs:
+        if not torch.equal(c, pc):
+            raise AssertionError(f"{entry} synthetic: counts {c[:, 0].tolist()} vs "
+                                 f"{pc[:, 0].tolist()}")
+        mask = inner & (hessian_response(blur) < t[:, None, None])
+        roots = (mask & (label_components(mask) == index)).sum((1, 2)).tolist()
+        (sf, _), (spf, _) = sort_candidates(f), sort_candidates(pf)
+        said, overflowed = [], False
+        for i, name in enumerate(names):
+            n = int(c[i, 0])
+            every = candidate_rows_plain(blur[i], t[i])
+            if every.shape[0] <= _CAPF:
+                same = torch.equal(sf[i], spf[i])
+            else:
+                # any 1024 of the accepted roots: each row is the plain row
+                # of its label, no label twice
+                overflowed = True
+                at = torch.searchsorted(every[:, 7].contiguous(), sf[i, :, 7].contiguous())
+                at = at.clamp(max=every.shape[0] - 1)
+                same = (n == _CAPF and torch.equal(every[at], sf[i])
+                        and bool((sf[i, 1:, 7] > sf[i, :-1, 7]).all()))
+            if not same:
+                raise AssertionError(
+                    f"{entry} synthetic {name}: fields differ from the plain version "
+                    f"({n} rows of {every.shape[0]} accepted)")
+            said.append(f"{name} {int(mask[i].sum())} masked/{roots[i]} roots/"
+                        f"{every.shape[0]} accepted")
+        if not overflowed:
+            raise AssertionError(f"{entry} synthetic: no frame overflows {_CAPF} rows")
+        print(f"kernels {entry} synthetic {h}x{w} b{b}: counts equal, sorted fields "
+              f"bit-equal (overflowing frames: rows of the uncut plain list); "
+              + ", ".join(said), flush=True)
+
+
+def phase_cluster_split(card: str, batch: int) -> dict:
+    """Device ms of each launch of the three cluster entries on two_boards
+    at ``batch``: torch.profiler's device time by kernel name, mean of 10
+    calls; prints what ptxas reported for the kernels of ``cluster.cu``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels import _lib
+    from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade, cluster_rochade_raw
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel,
+        front_kernel_decimate,
+        pad_raw,
+    )
+
+    sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
+    for r in _lib.kernel_resources("cluster.cu"):
+        print(f"ptxas cluster.cu {r['kernel']}: {r['registers']} registers, "
+              f"{r['stack_bytes']} B stack frame, spills {r['spill_store_bytes']}/"
+              f"{r['spill_load_bytes']} B (stores/loads), {r['smem_bytes']} B smem",
+              flush=True)
+    img = torch.from_numpy(read_png(DATA / "two_boards.png")).cuda()
+    frames = img[None].expand(batch, *img.shape).contiguous()
+    raw_p, h, w, ch, u16 = pad_raw(frames)
+    blur_p, _, tmin = front_kernel(raw_p, sigma, (h, w), ch, u16, emit_blur=True)
+    thr = tmin.amin(-1) * ratio
+    _, half_p, hmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
+    hthr = hmin.amin(-1) * ratio
+    calls = {
+        "cluster_rochade_raw": lambda: cluster_rochade_raw(raw_p, thr, h, w, ch, u16, sigma),
+        "cluster_rochade_raw[luma_f32]": lambda: cluster_rochade_raw(
+            half_p, hthr, h // 2, w // 2, 1, False, sigma, 4, 1.0, True),
+        "cluster_rochade": lambda: cluster_rochade(blur_p, thr, h, w),
+    }
+    split = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        split[name] = {
+            re.search(r"(\w+_kernel)\(", ev.key).group(1): ev.device_time_total / ev.count / 1e3
+            for ev in prof.key_averages() if "_kernel(" in ev.key and "at::" not in ev.key
+        }
+        if not split[name] or min(split[name].values()) <= 0.0:
+            raise AssertionError(f"{name}: the profiler shows no device time: {split[name]}")
+    return split
 
 
 def nms_tie_break_check() -> None:
@@ -903,6 +1117,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 2)")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="build, then only the kernel checks on two_boards and the "
+                         "cluster entries' per-launch split")
     args = ap.parse_args()
     import torch
 
@@ -910,9 +1127,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     card = phase_build()
+    if args.cluster_only:
+        phase_kernels(card, batch=32, names=("two_boards",))
+        split = phase_cluster_split(card, batch=32)
+        print(f"cluster split two_boards b32 [{card}]: {json.dumps(split)}", flush=True)
+        return 0
     rec = phase_kernels(card, batch=32)
     if args.kernels_only:
         return 0
+    split = phase_cluster_split(card, batch=32)
     launches = phase_end_to_end(card, batch=32)
     launches.update(phase_split_chain(card, batch=32))
     for k, n in phase_plane_path(card, batch=32).items():
@@ -960,6 +1183,8 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
         })
+    print(f"cluster split two_boards b32, device ms per launch [{card}]: "
+          f"{json.dumps(split)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ from aprilgrid_tpu.ops.gray import to_luma as j_luma
 from aprilgrid_tpu.pallas import cluster as jpcl
 from aprilgrid_tpu.pallas.frontend import front_kernel as j_front, pad_raw as j_pad
 from aprilgrid_tpu_torch.kernels.cluster import (
+    _scratch,
+    candidate_rows_plain,
     cluster_from_blur_plain,
+    cluster_rochade,
     cluster_rochade_raw,
     saddles_from_candidates,
 )
@@ -165,3 +168,176 @@ def test_saddles_from_candidates_matches_jax():
     for name in ("k", "theta", "phi"):
         np.testing.assert_allclose(getattr(ts, name)[0].numpy()[jv],
                                    np.asarray(getattr(js, name))[jv], atol=1e-4)
+
+
+# -- the CUDA kernels' list launches (csrc/cluster.cu), modelled in numpy --
+
+
+def _list_launches_model(mask: np.ndarray, seed: int):
+    """The kernels' launches, one list entry at a time in a shuffled order:
+    first labels = the start of each pixel's run inside its aligned
+    32-column segment (the dense launch), min-index links over the
+    masked-pixel list for the links that leaves open, the root list with
+    -(slot + 2) left in the label plane, integer member sums per root
+    slot. The width must be a multiple of 32, as the kernels' planes are.
+    Returns {root index: (count, row sum, column sum)}."""
+    h, w = mask.shape
+    assert w % 32 == 0
+    lab = np.full(h * w, -1)
+    for i in np.flatnonzero(mask):        # scan order: the left pixel is done
+        lab[i] = lab[i - 1] if i % 32 and lab[i - 1] >= 0 else i
+    plist = np.flatnonzero(mask)
+    np.random.default_rng(seed).shuffle(plist)
+
+    def find(x):                          # with path halving
+        while True:
+            p = lab[x]
+            if p == x or lab[p] == p:
+                return p
+            lab[x] = min(lab[x], lab[p])  # atomicMin
+            x = lab[p]
+
+    def unite(a, b):
+        while True:
+            a, b = find(a), find(b)
+            if a == b:
+                return
+            if a < b:
+                a, b = b, a
+            old = lab[a]
+            lab[a] = min(old, b)   # atomicMin
+            if old == a:
+                return
+            a = old
+
+    for i in plist:                       # unite_kernel
+        first, me, left, up = i % 32 == 0, lab[i], lab[i - 1], lab[i - w]
+        if first and left >= 0:
+            unite(me, left)
+        if up >= 0 and (first or left < 0 or lab[i - w - 1] < 0):
+            unite(me, up)
+    rlist = []
+    for i in plist:                       # roots_kernel
+        if lab[i] == i:
+            lab[i] = -(len(rlist) + 2)
+            rlist.append(i)
+    sums = np.zeros((len(rlist), 3), np.int64)
+    for i in plist:                       # stats_kernel: a run at a time
+        if i % 32 and lab[i - 1] != -1:
+            continue
+        n = 1
+        while (i + n) % 32 and lab[i + n] != -1:
+            n += 1
+        p = lab[i]
+        while p >= 0:
+            p = lab[p]
+        sums[-p - 2] += (n, n * (i // w), n * (i % w) + n * (n - 1) // 2)
+    return {int(r): tuple(int(v) for v in s) for r, s in zip(rlist, sums)}
+
+
+def _synthetic_masks():
+    """Small versions of the smoke's synthetic planes (spiral, comb,
+    checkerboard, whole interior, empty, saddle lattice, noise) as masks,
+    and two seeded random masks."""
+    import chip_smoke
+    from aprilgrid_tpu_torch.ops.frontend import hessian_response
+
+    names, planes, thr = chip_smoke.synthetic_blur_planes(70, 96, seed=1)
+    resp = hessian_response(torch.from_numpy(planes)).numpy()
+    masks = {n: resp[i] < thr[i] for i, n in enumerate(names)}
+    rng = np.random.default_rng(11)
+    masks["random sparse"] = rng.random((70, 96)) < 0.15
+    masks["random dense"] = rng.random((70, 96)) < 0.6
+    for m in masks.values():              # the kernels mask inside the border
+        m[0] = m[-1] = False
+        m[:, 0] = m[:, -1] = False
+    return masks
+
+
+_SHAPES = ("spiral", "comb", "checkerboard", "whole", "empty", "lattice", "noise",
+           "random sparse", "random dense")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_list_launches_model_matches_labeling(shape, seed):
+    """Whatever the order of the masked-pixel list: the roots are the
+    components' minimum linear indices and the member counts and integer
+    sums are those of ``label_components`` / ``cluster_centroids``."""
+    mask = _synthetic_masks()[shape]
+    h, w = mask.shape
+    got = _list_launches_model(mask, seed)
+    lab = tcluster.label_components(torch.from_numpy(mask)).numpy()
+    want = {}
+    for i in np.flatnonzero(mask):
+        n, sr, sc = want.get(int(lab.flat[i]), (0, 0, 0))
+        want[int(lab.flat[i])] = (n + 1, sr + i // w, sc + i % w)
+    assert got == want
+    root, centers = tcluster.cluster_centroids(torch.from_numpy(mask))
+    assert root.tolist() == sorted(got)
+    sums = np.array([got[r] for r in root.tolist()], np.int64).reshape(-1, 3)
+    cntf = sums[:, 0].astype(np.float32)
+    np.testing.assert_array_equal(
+        centers.numpy(),
+        np.stack([sums[:, 2].astype(np.float32) / cntf,
+                  sums[:, 1].astype(np.float32) / cntf], -1),
+    )
+    assert 2 * len(got) <= h * w          # the root list's capacity
+
+
+def test_synthetic_masks_have_their_shapes():
+    masks = _synthetic_masks()
+    roots = {n: len(_list_launches_model(m, 0)) for n, m in masks.items()}
+    assert roots["spiral"] == roots["comb"] == roots["whole"] == 1
+    assert masks["whole"][1:-1, 1:-1].all()
+    assert roots["checkerboard"] == masks["checkerboard"].sum() > 1000
+    assert roots["empty"] == 0 and not masks["empty"].any()
+    assert masks["spiral"].sum() > 1000 and masks["comb"].sum() > 1000
+    assert roots["lattice"] > 50 and roots["noise"] > 200
+
+
+def test_cluster_scratch_contract():
+    """The list launches' scratch: a pixel list entry per pixel, a root
+    slot per two pixels, three zeroed cursors per frame."""
+    labels, plist, rlist, cnt, sums, ctr, fields = _scratch(torch.zeros((3, 16, 128)))
+    assert labels.shape == plist.shape == (3, 16, 128)
+    assert rlist.shape == cnt.shape == (3, 1024) and sums.shape == (3, 1024, 2)
+    assert {t.dtype for t in (labels, plist, rlist, cnt, ctr)} == {torch.int32}
+    assert sums.dtype == torch.int64 and fields.dtype == torch.float32
+    assert ctr.shape == (3, 3) and not ctr.any()
+    assert fields.shape == (3, 1024, 8) and not fields.any()
+
+
+@pytest.mark.parametrize("bad", ["hp2", "domain", "thr shape", "thr dtype", "layout"])
+def test_cluster_wrappers_still_raise(bad):
+    blur = torch.zeros((2, 16, 128))
+    thr = torch.zeros(2)
+    kw = dict(h=12, w=100)
+    if bad == "hp2":
+        kw["hp2"] = 2
+    elif bad == "domain":
+        kw.update(h=16, w=2**16)
+    elif bad == "thr shape":
+        thr = torch.zeros(3)
+    elif bad == "thr dtype":
+        thr = thr.double()
+    else:
+        blur = torch.zeros((2, 12, 100))
+    with pytest.raises(ValueError):
+        cluster_rochade(blur, thr, **kw)
+
+
+def test_candidate_rows_plain_is_the_uncut_plain_version():
+    """The plain version's rows before the capacity cut: on a plane with
+    more accepted roots than rows the cut keeps the first 1024 in scan
+    order and the counter says 1024."""
+    import chip_smoke
+
+    names, planes, thr = chip_smoke.synthetic_blur_planes()
+    i = names.index("lattice")
+    blur, t = torch.from_numpy(planes[i]), torch.from_numpy(thr[i : i + 1])
+    rows = candidate_rows_plain(blur, t[0])
+    assert rows.shape[0] > 1024 and (rows[1:, 7] > rows[:-1, 7]).all()
+    fields, counts = cluster_from_blur_plain(blur[None], t)
+    assert counts.tolist() == [[1024.0, 0.0]]
+    np.testing.assert_array_equal(fields[0].numpy(), rows[:1024].numpy())

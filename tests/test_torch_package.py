@@ -173,3 +173,31 @@ def test_chip_smoke_png_reader_matches_pil(data_dir, name):
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_parse_ptxas_report():
+    """The build keeps what ptxas says of each kernel; the parser reads
+    name, registers, stack frame, spills and shared memory."""
+    from aprilgrid_tpu_torch.kernels._lib import parse_ptxas
+
+    text = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN49_GLOBAL__N__d1f2_10_cluster_cu_ab1213record_kernelEPKiS1_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__d1f2record_kernelEPKiS1_\n"
+        "    552 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers, 552 bytes cumulative stack "
+        "size, 1212 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN49_GLOBAL__N__d1f2_10_cluster_cu_ab1216blur_mask_kernelEPKv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__d1f2blur_mask_kernelEPKv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 43 registers, used 1 barriers, 39752 bytes smem, 472 bytes "
+        "cmem[0]\n"
+    )
+    assert parse_ptxas(text) == [
+        {"kernel": "record_kernel", "registers": 40, "stack_bytes": 552,
+         "spill_store_bytes": 8, "spill_load_bytes": 4, "smem_bytes": 0},
+        {"kernel": "blur_mask_kernel", "registers": 43, "stack_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "smem_bytes": 39752},
+    ]
