@@ -5,29 +5,47 @@
 // path's clustering-free extraction, merge = 0). The TPU kernel evaluates
 // everything densely per 160-row window — the ROCHADE record at every
 // pixel, two log-tree min filters, selection matmuls into the cell grid.
-// The function itself is sparse, and here it is three launches over device
-// scratch that the wrapper allocates:
+// Here it is three launches over 64 x 64 tiles and device scratch that the
+// wrapper allocates (blur and candidate planes, a flag per tile):
 //
 //   (a) blur_resp: the tile stencil (stencil.cuh, MODE_F32) writes the
-//       blur plane and the masked response plane: the Hessian response
-//       where it is < thr strictly inside the image, else BIGF;
-//   (b) gate: one thread per pixel; a masked pixel inside the 4-pixel
-//       margin evaluates the ROCHADE fit on its 9x9 blur patch
-//       (rochade.cuh) and stays a candidate only if the fit accepts;
-//   (c) peaks: a candidate is a plateau pixel when no candidate of its 7x7
-//       window has a smaller response, and a peak when no plateau pixel
-//       of that window with the same response precedes it in scan order;
-//       a peak writes [col + x0, row + y0, c3, c4, c5, row * w + col + 1]
-//       into its aligned 4x4 cell of the zero-filled cell grid.
+//       blur plane and the candidate plane: the Hessian response where it
+//       is < thr at least hp2 pixels from every image edge, else BIGF; the
+//       tile's flag says whether it holds such a pixel;
+//   (b) gate, flagged tiles only: the ROCHADE fit in its tile form
+//       (rochade.cuh). A block stages the blur tile with its 4-pixel halo
+//       and computes the cone-smoothed plane S on 68 x 68 once for all of
+//       the tile's pixels, four values a thread at a time — the fit is
+//       position-independent, so neighbouring pixels share every S value
+//       bit for bit, and the cone is 625 of a fit's 775 taps; the tile's
+//       masked pixels, a few hundred of 4096, then go into a list in shared
+//       memory, and each runs the two 5-tap passes on its 5x5 window of S
+//       and the closed form, in registers and on full warps, and becomes
+//       BIGF if the fit rejects. The flag is rewritten: a candidate
+//       survived;
+//   (c) peaks, 16 rows of a flagged tile per block, four pixels a thread,
+//       no barrier: a candidate is a plateau pixel when no candidate of its
+//       7x7 window has a smaller response (49 loads that wait on nothing),
+//       and a peak when no plateau pixel of that window with the same
+//       response precedes it in scan order. A warp ballots its peaks and
+//       runs the fit of each as a warp (fit_record_warp), then writes
+//       [col + x0, row + y0, c3, c4, c5, row * w + col + 1] into the peak's
+//       aligned 4x4 cell of the zero-filled cell grid.
 //
 // Two peaks are more than 3 pixels apart (Chebyshev), so no two share a
-// cell and the writes of (c) never collide. Responses are compared with
-// == on the values launch (a) stored, so ties resolve exactly as in the
-// plain version.
+// cell (nor a thread's four pixels) and the writes of (c) never collide.
+// Responses are compared with == on the values launch (a) stored, so ties
+// resolve exactly as in the plain version.
 //
-// Bound on the H100: memory. (a) reads the half plane and writes two f32
-// planes; (b) and (c) read the masked response plane once each and touch
-// the blur plane only around masked pixels.
+// Bound on the H100: by bytes for the function as a whole (the half plane
+// in, the cell grid out), with the tile form's operations a close second.
+// (a) is the stencil family's launch, 12 bytes a pixel against 42
+// operations, and the largest of the three; (b) is bound by instruction
+// throughput — 25 cone taps a pixel of a flagged tile, each a multiply and an
+// add (--fmad=false: the taps are not fused), and ~150 taps a masked
+// pixel — in 39 KB of shared memory a block; (c) reads the candidate
+// plane once and touches the blur plane only around peaks. No launch has a
+// thread that runs a whole fit.
 #include "rochade.cuh"
 #include "stencil.cuh"
 
@@ -37,119 +55,224 @@ using namespace ag;
 
 constexpr float BIGF = 3.0e38f;  // "not a candidate"
 constexpr int NMS_R = 3;         // Chebyshev radius of the peak window
+constexpr int PEAK_ROWS = 16;    // peaks_kernel: rows per block (two a warp)
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(FIT_TILE == TILE_H && FIT_TILE == STRIP_W, "one tile size");
+
+__device__ __forceinline__ int* tile_flag(int* flags, int b, int ti, int si,
+                                          int hp, int wp) {
+  return flags + ((size_t)b * (hp / TILE_H) + ti) * (wp / STRIP_W) + si;
+}
 
 __global__ void __launch_bounds__(THREADS)
-blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w,
-                 Taps7 taps, const float* thr, float* blur, float* cand) {
+blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
+                 Taps7 taps, const float* thr, float* blur, float* cand,
+                 int* flags) {
   __shared__ TileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int c0 = si * STRIP_W;
   blur_tile(s, half_p, b, ti, si, hp, wp, 1, MODE_F32, w, taps);
   const float t = thr[b];
   const size_t fbase = (size_t)b * hp * wp;
+  bool any = false;
   for (int idx = threadIdx.x; idx < TILE_H * STRIP_W; idx += THREADS) {
     int y = idx / STRIP_W, x = idx % STRIP_W;
     int r = ti * TILE_H + y, c = c0 + x;
     size_t i = fbase + (size_t)r * wp + c;
     blur[i] = s.lum[y + 1][x + 1];
     float v = BIGF;
-    if (r > 0 && r < h - 1 && c > 0 && c < w - 1) {
+    if (r >= hp2 && r < h - hp2 && c >= hp2 && c < w - hp2) {
       float resp = hessian_at(s, y + 1, x + 1);
-      if (resp < t) v = resp;
+      if (resp < t) {
+        v = resp;
+        any = true;
+      }
     }
     cand[i] = v;
   }
+  const int some = __syncthreads_or(any);
+  if (threadIdx.x == 0) *tile_flag(flags, b, ti, si, hp, wp) = some;
 }
 
-__global__ void gate_kernel(const float* blur, float* cand, int hp, int wp,
-                            int h, int w, int hp2, FitTaps fit,
-                            float move_thr, long long total) {
-  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  if (cand[g] >= BIGF) return;
-  const long long fpix = (long long)hp * wp;
-  const int i = (int)(g % fpix);
-  const int r = i / wp, c = i % wp;
-  float x0, y0, c3, c4, c5;
-  if (r < hp2 || r >= h - hp2 || c < hp2 || c >= w - hp2 ||
-      !fit_record(blur + (g - i) + (size_t)(r - 4) * wp + (c - 4), wp, fit,
-                  move_thr, &x0, &y0, &c3, &c4, &c5))
-    cand[g] = BIGF;
+__global__ void __launch_bounds__(THREADS)
+gate_kernel(const float* blur, float* cand, int* flags, int hp, int wp,
+            const __grid_constant__ FitTileTaps fit, float move_thr) {
+  __shared__ FitTileSmem s;
+  __shared__ int count;
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  int* flag = tile_flag(flags, b, ti, si, hp, wp);
+  if (!*flag) return;   // the whole block: no masked pixel in this tile
+  const size_t fbase = (size_t)b * hp * wp;
+  const size_t tile0 = fbase + (size_t)ti * FIT_TILE * wp + si * FIT_TILE;
+  if (threadIdx.x == 0) count = 0;
+  // this thread's pixels of the tile (threadIdx.x + THREADS k): their
+  // candidate values are asked for now and read once S stands
+  constexpr int PIX = FIT_TILE * FIT_TILE / THREADS;
+  float cv[PIX];
+#pragma unroll
+  for (int k = 0; k < PIX; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    cv[k] = cand[tile0 + (size_t)(idx / FIT_TILE) * wp + idx % FIT_TILE];
+  }
+  // rows and columns outside the padded plane are clamped: they reach only
+  // pixels outside the margin, which are no candidates
+  for (int idx = threadIdx.x; idx < FIT_BL * FIT_BL; idx += THREADS) {
+    const int y = idx / FIT_BL, x = idx - y * FIT_BL;
+    const int r = min(max(ti * FIT_TILE - 4 + y, 0), hp - 1);
+    const int c = min(max(si * FIT_TILE - 4 + x, 0), wp - 1);
+    s.bl[idx] = blur[fbase + (size_t)r * wp + c];
+  }
+  __syncthreads();
+  fit_tile_smooth(s, fit);
+  // the tile's masked pixels, a few hundred of its 4096, as a list (over
+  // the blur tile, which is free now), so that the fits run on full warps
+  int* list = reinterpret_cast<int*>(s.bl);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < PIX; ++k) {
+    const bool m = cv[k] < BIGF;
+    const unsigned bal = __ballot_sync(FULL, m);
+    int at = 0;
+    if (lane == 0 && bal) at = atomicAdd(&count, __popc(bal));
+    at = __shfl_sync(FULL, at, 0);
+    if (m) list[at + __popc(bal & ((1u << lane) - 1u))] = threadIdx.x + k * THREADS;
+  }
+  __syncthreads();
+  const int n = count;
+  bool any = false;
+  for (int k = threadIdx.x; k < n; k += THREADS) {
+    const int idx = list[k], y = idx / FIT_TILE, x = idx % FIT_TILE;
+    float x0, y0, c3, c4, c5;
+    if (fit_tile_at(s.S, y, x, fit, move_thr, &x0, &y0, &c3, &c4, &c5))
+      any = true;
+    else
+      cand[tile0 + (size_t)y * wp + x] = BIGF;
+  }
+  const int some = __syncthreads_or(any);
+  if (threadIdx.x == 0) *flag = some;
 }
 
-// No candidate of the 7x7 window around (r, c) has a response below v.
-__device__ bool is_plateau(const float* cd, int wp, int r, int c, float v) {
-  for (int dr = -NMS_R; dr <= NMS_R; ++dr)
-    for (int dc = -NMS_R; dc <= NMS_R; ++dc)
-      if (cd[(size_t)(r + dr) * wp + (c + dc)] < v) return false;
+// One pass over the 7x7 window around (r, c), 49 loads that wait on nothing:
+// whether a candidate of the window has a response below v, and in
+// ``equal_before`` a bit for each of the 24 window pixels that precede
+// (r, c) in scan order and hold exactly v.
+__device__ __forceinline__ bool any_below(const float* cd, int wp, int r, int c,
+                                          float v, unsigned* equal_before) {
+  const float* p = cd + (size_t)(r - NMS_R) * wp + (c - NMS_R);
+  bool below = false;
+  unsigned eq = 0u;
+#pragma unroll
+  for (int i = 0; i < 2 * NMS_R + 1; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * NMS_R + 1; ++j) {
+      const float x = p[(size_t)i * wp + j];
+      below |= x < v;
+      const int k = i * (2 * NMS_R + 1) + j;
+      if (k < NMS_R * (2 * NMS_R + 1) + NMS_R) eq |= (unsigned)(x == v) << k;
+    }
+  *equal_before = eq;
+  return below;
+}
+
+// Candidate (r, c) with response v is a peak: a plateau pixel (no smaller
+// candidate in its window) that no equal plateau pixel of the window
+// precedes in scan order. Candidates lie inside the 4-pixel margin, so
+// every window read here stays inside the plane.
+__device__ bool is_peak(const float* cd, int wp, int r, int c, float v) {
+  unsigned eq, unused;
+  if (any_below(cd, wp, r, c, v, &eq)) return false;
+  while (eq) {
+    const int k = __ffs(eq) - 1;
+    eq &= eq - 1;
+    if (!any_below(cd, wp, r - NMS_R + k / (2 * NMS_R + 1),
+                   c - NMS_R + k % (2 * NMS_R + 1), v, &unused))
+      return false;  // an equal plateau pixel earlier in scan order wins
+  }
   return true;
 }
 
-__global__ void peaks_kernel(const float* blur, const float* cand, int hp,
-                             int wp, int w, FitTaps fit, float move_thr,
-                             float* cells, long long total) {
-  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const float v = cand[g];
-  if (v >= BIGF) return;
-  const long long fpix = (long long)hp * wp;
-  const int b = (int)(g / fpix);
-  const int i = (int)(g % fpix);
-  const int r = i / wp, c = i % wp;
-  // candidates lie inside the 4-pixel margin, so every window below stays
-  // inside the plane
-  const float* cd = cand + (g - i);
-  if (!is_plateau(cd, wp, r, c, v)) return;
-  for (int dr = -NMS_R; dr <= 0; ++dr)
-    for (int dc = -NMS_R; dc <= NMS_R; ++dc) {
-      if (dr == 0 && dc >= 0) break;
-      if (cd[(size_t)(r + dr) * wp + (c + dc)] == v &&
-          is_plateau(cd, wp, r + dr, c + dc, v))
-        return;  // an equal plateau pixel earlier in scan order wins
-    }
-  float x0, y0, c3, c4, c5;
-  fit_record(blur + (g - i) + (size_t)(r - 4) * wp + (c - 4), wp, fit,
-             move_thr, &x0, &y0, &c3, &c4, &c5);
+__global__ void __launch_bounds__(THREADS)
+peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
+             int w, const __grid_constant__ FitTaps fit, float move_thr,
+             float* cells) {
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * PEAK_ROWS;
+  if (!*tile_flag(flags, b, r0 / TILE_H, blockIdx.x, hp, wp)) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = r0 + (threadIdx.x >> 4);
+  const int c = blockIdx.x * STRIP_W + 4 * (threadIdx.x & 15);
+  const size_t fbase = (size_t)b * hp * wp;
+  const float* cd = cand + fbase;
+  const float4 v4 = *reinterpret_cast<const float4*>(cd + (size_t)r * wp + c);
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+  int pk = -1;   // the peak among this thread's four pixels: at most one
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (v[k] < BIGF && is_peak(cd, wp, r, c + k, v[k])) pk = k;
+  // no barrier in this kernel: a warp without a peak leaves. The fit reads
+  // its tap tables from the parameter bank, where lanes that read different
+  // rows take turns; staging them in shared memory would cost a block more
+  // than its two or three fits do
+  __shared__ FitScratch scratch[THREADS / 32];
+  unsigned bal = __ballot_sync(FULL, pk >= 0);
   const int cr = hp / 4, cc = wp / 4;
   const size_t plane = (size_t)cr * cc;
-  float* cell = cells + (size_t)b * 6 * plane + (size_t)(r / 4) * cc + (c / 4);
-  cell[0] = __fadd_rn((float)c, x0);
-  cell[plane] = __fadd_rn((float)r, y0);
-  cell[2 * plane] = c3;
-  cell[3 * plane] = c4;
-  cell[4 * plane] = c5;
-  cell[5 * plane] = (float)(r * w + c + 1);
+  while (bal) {
+    const int from = __ffs(bal) - 1;
+    bal &= bal - 1;
+    const int pr = __shfl_sync(FULL, r, from);
+    const int pc = __shfl_sync(FULL, c + pk, from);
+    float x0, y0, c3, c4, c5;
+    fit_record_warp(scratch[warp],
+                    blur + fbase + (size_t)(pr - 4) * wp + (pc - 4), wp, fit,
+                    move_thr, &x0, &y0, &c3, &c4, &c5);
+    if (lane == 0) {
+      float* cell = cells + (size_t)b * 6 * plane + (size_t)(pr / 4) * cc + (pc / 4);
+      cell[0] = __fadd_rn((float)pc, x0);
+      cell[plane] = __fadd_rn((float)pr, y0);
+      cell[2 * plane] = c3;
+      cell[3 * plane] = c4;
+      cell[4 * plane] = c5;
+      cell[5 * plane] = (float)(pr * w + pc + 1);
+    }
+  }
 }
 
 }  // namespace
 
-// half_p: (b, hp + 16, wp) f32 padded half plane, (h, w) its true size;
-// thr: (b,) f32 device; scratch: blur and cand (b, hp, wp) f32; cells:
+// half_p: (b, hp + 16, wp) f32 padded half plane, hp and wp multiples of
+// 64, (h, w) its true size; thr: (b,) f32 device; scratch: blur and cand
+// (b, hp, wp) f32, flags (b, hp / 64, wp / 64) int32; cells:
 // (b, 6, hp / 4, wp / 4) f32 zero-filled by the caller. Returns the first
-// launch error, or 0.
+// launch error, -1 if the fit's tables are not in the order the tile form
+// takes (rochade.cuh::fit_tile_taps), or 0.
 extern "C" int ag_nms_extract_raw(const void* half_p, int b, int hp, int wp,
                                   int h, int w, const void* thr,
                                   const float* taps7, const void* fit_taps,
                                   float move_thr, int hp2, void* blur,
-                                  void* cand, void* cells, void* stream) {
+                                  void* cand, void* flags, void* cells,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
   const FitTaps fit = *(const FitTaps*)fit_taps;
-  dim3 tgrid(wp / STRIP_W, hp / TILE_H, b);
+  FitTileTaps tile_taps;
+  if (!fit_tile_taps(fit, &tile_taps)) return -1;
+  const dim3 tgrid(wp / STRIP_W, hp / TILE_H, b);
   blur_resp_kernel<<<tgrid, THREADS, 0, st>>>(
-      (const float*)half_p, hp, wp, h, w, taps, (const float*)thr,
-      (float*)blur, (float*)cand);
+      (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr,
+      (float*)blur, (float*)cand, (int*)flags);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)b * hp * wp;
-  const unsigned pgrid = (unsigned)((total + THREADS - 1) / THREADS);
-  gate_kernel<<<pgrid, THREADS, 0, st>>>((const float*)blur, (float*)cand, hp,
-                                         wp, h, w, hp2, fit, move_thr, total);
+  gate_kernel<<<tgrid, THREADS, 0, st>>>((const float*)blur, (float*)cand,
+                                           (int*)flags, hp, wp, tile_taps,
+                                           move_thr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  const dim3 pgrid(wp / STRIP_W, hp / PEAK_ROWS, b);
   peaks_kernel<<<pgrid, THREADS, 0, st>>>((const float*)blur,
-                                          (const float*)cand, hp, wp, w, fit,
-                                          move_thr, (float*)cells, total);
+                                          (const float*)cand, (int*)flags, hp,
+                                          wp, w, fit, move_thr, (float*)cells);
   return (int)cudaGetLastError();
 }

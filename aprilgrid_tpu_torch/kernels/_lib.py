@@ -137,10 +137,10 @@ def lib() -> ctypes.CDLL:
         p, i, i, i, i, i, i, i, p, p, p, i, i, p, p,
     ]
     handle.ag_nms_extract_raw.restype = i
-    handle.ag_nms_extract_raw.argtypes = [p, i, i, i, i, i, p, p, p, f, i, p, p, p, p]
+    handle.ag_nms_extract_raw.argtypes = [p, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p]
     handle.ag_sparse_refine_raw.restype = i
     handle.ag_sparse_refine_raw.argtypes = [
-        p, i, i, i, i, i, i, i, p, p, p, i, p, f, p, p,
+        p, i, i, i, i, i, i, i, p, p, p, i, p, f, i, p, p,
     ]
     handle.ag_hamming_scan.restype = i
     handle.ag_hamming_scan.argtypes = [p, i, i, p, i, p, p, p]

@@ -28,6 +28,7 @@ read them; ``pad_half`` does the same for a half-resolution luma plane.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -160,7 +161,10 @@ def front_kernel_decimate_plain(raw_p: torch.Tensor, sigma: float,
     return l8[:, 8:-8].contiguous(), half_p, tile_min
 
 
+@functools.lru_cache(maxsize=None)
 def _taps(sigma: float) -> ctypes.Array:
+    """The blur's 7 taps as the C array the launches take, built once per
+    sigma; callers only read it."""
     taps = gaussian_kernel(sigma)
     if len(taps) != 7:
         raise ValueError("the kernels take a 7-tap blur (sigma <= 1.5)")

@@ -3,9 +3,15 @@ extraction at half resolution.
 
 ``nms_extract_raw`` replaces the JAX package's
 ``pallas/nms.py::nms_extract_raw``. On a CUDA tensor it launches
-``csrc/nms.cu`` (three launches behind one wrapper: blur + masked
-response, record gate, peaks into the cell grid; the source's head notes
-what bounds it); on a CPU tensor it runs ``nms_extract_raw_plain``.
+``csrc/nms.cu``, three launches over 64 x 64 tiles behind one wrapper: the
+blur stencil with the masked response and a flag per tile (the largest of
+the three, bound like the other stencil kernels); the record gate on the
+flagged tiles, where the ROCHADE fit's cone smoothing is one stencil of the
+whole tile that its masked pixels share
+(``ops/rochade.py::record_planes`` states the premise in PyTorch), bound by
+instruction throughput; the peaks, a warp's fit each, into the cell grid. The
+source's head has the details. On a CPU tensor it runs
+``nms_extract_raw_plain``.
 
 The function, on the half-resolution luma plane of ``front_kernel_decimate``:
 
@@ -25,8 +31,9 @@ The function, on the half-resolution luma plane of ``front_kernel_decimate``:
 layout. The cell grid, rather than an atomic append, keeps the overflow
 case (more peaks than the capacity) independent of thread timing.
 
-Differences from the TPU kernel, by design: only masked pixels evaluate a
-record (the TPU kernel evaluates it at every pixel); the geodesic peak
+Differences from the TPU kernel, by design: only tiles that hold a masked
+pixel evaluate the smoothed plane, and only masked pixels the record (the
+TPU kernel evaluates it at every pixel); the geodesic peak
 merge (``merge`` > 0, off by default in the JAX package) is not ported and
 raises; the row-sharding arguments are not ported.
 """
@@ -152,6 +159,7 @@ def nms_extract_raw(
     thr = thr.contiguous()
     blur = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
     cand = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=dev)
+    flags = torch.empty((b, h_pad // 64, w_pad // 64), dtype=torch.int32, device=dev)
     cells = torch.zeros(
         (b, 6, h_pad // _CELL, w_pad // _CELL), dtype=torch.float32, device=dev
     )
@@ -160,8 +168,14 @@ def nms_extract_raw(
     err = lib().ag_nms_extract_raw(
         half_p.data_ptr(), b, h_pad, w_pad, h, w, thr.data_ptr(),
         ctypes.addressof(taps), ctypes.addressof(fit), float(move_thr), hp2,
-        blur.data_ptr(), cand.data_ptr(), cells.data_ptr(), stream_of(half_p),
+        blur.data_ptr(), cand.data_ptr(), flags.data_ptr(), cells.data_ptr(),
+        stream_of(half_p),
     )
+    if err == -1:
+        raise ValueError(
+            "nms_extract_raw: the fit's tap tables are not in the order the "
+            "tile kernel takes (csrc/rochade.cuh::fit_tile_taps)"
+        )
     check(err, "nms_extract_raw")
     LAUNCHES["nms_extract_raw"] += 1
     return cells

@@ -3,8 +3,12 @@ path's surviving candidates, straight from the padded raw frames.
 
 ``sparse_refine_raw`` replaces the JAX package's
 ``pallas/refine.py::sparse_refine_raw``. On a CUDA tensor it launches
-``csrc/refine.cu`` (one block per valid slot; the source's head notes what
-bounds it); on a CPU tensor it runs ``sparse_refine_raw_plain``, which is
+``csrc/refine.cu``: one launch, a warp per (frame, slot), eight slots a
+block, that writes every slot's finished row — position, k, theta, phi and
+the accept bit with the bounds gate — so the wrapper enqueues the launch
+and one compare; what the launch costs is instruction throughput, ~2 k warp
+instructions per live slot (the source's head has the details). On a CPU
+tensor it runs ``sparse_refine_raw_plain``, which is
 ``ops/rochade.py::refine_at_raw`` on the frames inside the padding.
 
 Difference from the TPU kernel, by design: it takes every frame width. The
@@ -19,8 +23,7 @@ import ctypes
 
 import torch
 
-from ..ops.geometry import rust_round
-from ..ops.rochade import Saddles, refine_at_raw, saddle_angles
+from ..ops.rochade import Saddles, refine_at_raw
 from . import LAUNCHES
 from ._fit import fit_struct
 from ._lib import check, lib, require_cuda, stream_of
@@ -71,23 +74,17 @@ def sparse_refine_raw(
     kcap = centers.shape[1]
     centers = centers.contiguous()
     valid = valid.contiguous()
-    fields = torch.zeros((b, kcap, 8), dtype=torch.float32, device=raw_p.device)
+    # the kernel writes every row: [x, y, k, theta, phi, ok, 0, 0]
+    fields = torch.empty((b, kcap, 8), dtype=torch.float32, device=raw_p.device)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
     err = lib().ag_sparse_refine_raw(
         raw_p.data_ptr(), b, raw_p.shape[1] - 16, raw_p.shape[2] // channels,
         channels, int(u16), h, w, ctypes.addressof(taps), centers.data_ptr(),
-        valid.data_ptr(), kcap, ctypes.addressof(fit), float(move_thr),
+        valid.data_ptr(), kcap, ctypes.addressof(fit), float(move_thr), hp2,
         fields.data_ptr(), stream_of(raw_p),
     )
     check(err, "sparse_refine_raw")
     LAUNCHES["sparse_refine_raw"] += 1
-    # angles and gates over the slot-aligned rows
-    rx = rust_round(centers[..., 0]).to(torch.int64)
-    ry = rust_round(centers[..., 1]).to(torch.int64)
-    in_bounds = (
-        (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
-    ) & valid
-    k, theta, phi = saddle_angles(fields[..., 3], fields[..., 4], fields[..., 5])
-    ok = (fields[..., 6] > 0.5) & (fields[..., 7] > 0.5) & in_bounds
-    return Saddles(p=fields[..., 0:2], k=k, theta=theta, phi=phi, valid=ok)
+    return Saddles(p=fields[..., 0:2], k=fields[..., 2], theta=fields[..., 3],
+                   phi=fields[..., 4], valid=fields[..., 5] > 0.5)

@@ -140,7 +140,12 @@ def fit_record(patch: torch.Tensor, half_patch: int = 2,
         for d, wgt in htaps:
             acc = acc + wgt * vert[vid][..., d]
         a.append(acc)
-    a1, a2, a3, a4, a5 = a
+    return _fit_solve(*a, move_threshold)
+
+
+def _fit_solve(a1, a2, a3, a4, a5, move_threshold: float):
+    """The closed form after the five fit coefficients: subpixel offsets,
+    c3..c5 and the accept gate (``csrc/rochade.cuh::fit_solve``)."""
     dqf = (2.0 * a1) * (2.0 * a3) - a2 * a2
     safe_d = torch.where(dqf == 0.0, torch.ones_like(dqf), dqf)
     x0 = (-2.0 * a3 * a4 + a2 * a5) / safe_d
@@ -156,6 +161,47 @@ def fit_record(patch: torch.Tensor, half_patch: int = 2,
         & (torch.abs(c5) < kk)
     )
     return x0, y0, c3, c4, c5, ok
+
+
+def record_planes(blur: torch.Tensor, half_patch: int = 2,
+                  move_threshold: float = 1.0):
+    """``fit_record`` at every pixel of (..., H, W) blur planes at least
+    ``2 * half_patch`` from the edge, as stencils of the whole plane — the
+    plain statement of the kernels' tile form (``csrc/rochade.cuh``) and the
+    counterpart of the JAX package's ``pallas/cluster.py::_record_planes``.
+
+    The fit does not depend on where its pixel is. Smoothed element
+    (a, c) of pixel (r, c0) is the value at (r - 2 + a, c0 - 2 + c) of one
+    plane S, the cone stencil of the blur; the vertical pass of factor v
+    at column c is the value at (r, c0 - 2 + c) of a column stencil V_v of
+    S; coefficient j is a row stencil of V_vid[j] at (r, c0). Every value
+    of S and V_v is accumulated from 0 by one multiply and one add per tap
+    in table order — the chain ``fit_record`` runs for that element — so
+    neighbouring pixels share them bit for bit.
+
+    Returns ``(x0, y0, c3, c4, c5, ok)``, each (..., H - 8, W - 8) for
+    ``half_patch`` 2: entry (i, j) is the record of pixel (i + 4, j + 4)."""
+    cone, fits = fit_taps(half_patch)
+    hp2 = 2 * half_patch
+    h, w = blur.shape[-2:]
+    hs, ws = h - hp2, w - hp2          # S covers pixels hp2 / 2 from the edge
+    smooth = torch.zeros(blur.shape[:-2] + (hs, ws), dtype=blur.dtype,
+                         device=blur.device)
+    for dr, dc, wgt in cone:
+        smooth = smooth + wgt * blur[..., dr : dr + hs, dc : dc + ws]
+    vert: dict = {}
+    a = []
+    for vid, vtaps, htaps in fits:
+        if vid not in vert:
+            v = torch.zeros_like(smooth[..., : hs - hp2, :])
+            for d, wgt in vtaps:
+                v = v + wgt * smooth[..., d : d + hs - hp2, :]
+            vert[vid] = v
+        acc = torch.zeros_like(vert[vid][..., : ws - hp2])
+        for d, wgt in htaps:
+            acc = acc + wgt * vert[vid][..., d : d + ws - hp2]
+        a.append(acc)
+    return _fit_solve(*a, move_threshold)
 
 
 def saddle_angles(c3: torch.Tensor, c4: torch.Tensor, c5: torch.Tensor):

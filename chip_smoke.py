@@ -18,16 +18,24 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames x 96 quads x 4 rotations) with their times; the turbo path's
    kernels (decimating front kernel, the cluster kernel's f32-luma mode,
    NMS extraction, sparse refine) on iphone and two_boards at batch 32
-   and on EuRoC and TUM_VI at batch 8, and the NMS tie-break on a plane
-   with planted equal responses; the plane path's kernels
+   and on EuRoC and TUM_VI at batch 8, the NMS tie-break on a plane
+   with planted equal responses, the NMS kernel on synthetic planes (a
+   fit at every pixel, none, blobs across tile corners and the margin, a
+   shape that is no multiple of its tile) and the refine kernel on slot
+   sets no frame produces (every slot valid, none, valid slots that are
+   no prefix, centres on the rounding's ties, negative and outside the
+   image) on u8, u16 and RGB frames; the plane path's kernels
    (``fused_frontend`` cropped and padded, ``gray_kernel``, the front
    kernel's ``emit_blur`` mode, the blur-fed ``cluster_rochade``) on every
    image at batch 32; both cluster entries on synthetic masks no
    photograph produces (spiral, comb, checkerboard of single pixels, one
    blob over the whole interior, empty, more accepted roots than rows,
    noise), a different mask in each frame of one batch; then the device
-   time of each launch of the three cluster entries on two_boards
-   (torch.profiler) with what ptxas reported for their kernels;
+   time of each launch of the three cluster entries, of
+   ``nms_extract_raw`` and of ``sparse_refine_raw`` on two_boards
+   (torch.profiler) with what ptxas reported for their kernels, and for
+   the last two the PyTorch operations their wrappers enqueue and the
+   spread of the whole call's time;
 3. end to end: ``detect_batch`` at batch 32 on EuRoC, TUM_VI, iphone and
    two_boards — golden tag counts on every frame, ID sets and corners
    against the port's own CPU run, frames/s timed with CUDA events; then
@@ -52,7 +60,9 @@ Phases (a failing phase raises, so the script exits non-zero):
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
 phase 2, for a first check of new kernels; ``--cluster-only`` runs phase 2
-on two_boards alone, for work on the cluster kernels).
+on two_boards alone, for work on the cluster kernels; ``--turbo-only`` runs
+the turbo path's kernel checks, the NMS and refine synthetic cases and their
+per-launch split, for work on those two kernels).
 """
 
 from __future__ import annotations
@@ -280,6 +290,8 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
         turbo_kernels(name, frames if name in TURBO else frames[: batch // 4], rec)
         plane_kernels(name, frames, thr, roots, rec)
     nms_tie_break_check()
+    nms_synthetic_check()
+    refine_synthetic_check()
     cluster_synthetic_check()
 
     spec = get_family("t36h11")
@@ -308,11 +320,15 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     )
     timed = [(f"{n}.{k}", r) for n in names
              for k, r in rec[n].items()] + [("hamming", rec["hamming"])]
+    _print_times(card, timed)
+    return rec
+
+
+def _print_times(card: str, timed) -> None:
     for key, r in timed:
         print(f"time {key}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]",
-                  flush=True)
-    return rec
+              f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]",
+              flush=True)
 
 
 def turbo_kernels(name: str, frames, rec: dict) -> None:
@@ -320,12 +336,10 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
     frames (already on the card), chained as the path chains them."""
     import torch
 
-    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.config import CONSTANTS
     from aprilgrid_tpu_torch.kernels.cluster import (
-        _CAPF,
         cluster_rochade_raw,
         cluster_rochade_raw_plain,
-        saddles_from_candidates,
         sort_candidates,
     )
     from aprilgrid_tpu_torch.kernels.frontend import (
@@ -333,18 +347,14 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
         front_kernel_decimate_plain,
         pad_raw,
     )
-    from aprilgrid_tpu_torch.kernels.nms import (
-        cells_to_fields,
-        nms_extract_raw,
-        nms_extract_raw_plain,
-    )
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
     from aprilgrid_tpu_torch.kernels.refine import (
         sparse_refine_raw,
         sparse_refine_raw_plain,
     )
     from aprilgrid_tpu_torch.ops.cluster import label_components
     from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
-    from aprilgrid_tpu_torch.ops.rochade import filter_and_compact
+    from aprilgrid_tpu_torch.ops.rochade import fit_taps
 
     dev = frames.device
     sigma = CONSTANTS.blur_sigma
@@ -387,27 +397,31 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
             f"{int((pcells[:, 5] > 0.5).sum())} peaks, max |diff| {nms_err}"
         )
 
-    fields, n_peaks = cells_to_fields(cells, _CAPF)
-    half_s = filter_and_compact(
-        saddles_from_candidates(fields), DEFAULT_CAPACITIES.max_saddles,
-        CONSTANTS.saddle_k_ratio, DEFAULT_PARAMS.min_saddle_angle,
-        DEFAULT_PARAMS.max_saddle_angle,
-    )
-    centers, valid = half_s.p * 2.0 + 0.5, half_s.valid
-    rargs = (raw_p, centers, valid, h, w, ch, u16, sigma, 4, 1.0)
+    chain = turbo_chain(frames)   # the survivors of these cells, as the path gates them
+    rargs = chain["rargs"]
+    centers, valid = rargs[1:3]
     rs = sparse_refine_raw(*rargs)
     prs = sparse_refine_raw_plain(*rargs)
     torch.cuda.synchronize()
     rf_err = max((getattr(rs, k) - getattr(prs, k))[valid].abs().max().item()
                  for k in ("p", "k", "theta", "phi"))
     if not torch.equal(rs.valid, prs.valid) or rf_err > 0:
+        first = []
+        for k in ("p", "k", "theta", "phi"):
+            d = getattr(rs, k) != getattr(prs, k)
+            d = (d.any(-1) if d.ndim == 3 else d) & valid
+            if d.any():
+                i = tuple(d.nonzero()[0].tolist())
+                first.append(f"{k}: {int(d.sum())} slots, first {i}: kernel "
+                             f"{getattr(rs, k)[i].tolist()!r}, plain {getattr(prs, k)[i].tolist()!r}")
         raise AssertionError(
             f"sparse_refine_raw {name}: valid {int(rs.valid.sum())} vs "
-            f"{int(prs.valid.sum())}, max |diff| over processed slots {rf_err}"
+            f"{int(prs.valid.sum())}, max |diff| over processed slots {rf_err}; "
+            + "; ".join(first)
         )
     print(f"kernels {name} {tuple(frames.shape[1:])} b{batch} turbo: front_decimate, "
           f"cluster[luma_f32] ({int(c[0, 0].item())} accepted/frame), nms "
-          f"({int(n_peaks[0].item())} peaks/frame), refine ({int(valid[0].sum())} slots, "
+          f"({chain['peaks']} peaks/frame), refine ({int(valid[0].sum())} slots, "
           f"{int(rs.valid[0].sum())} accepted/frame) bit-equal to their plain versions",
           flush=True)
 
@@ -419,11 +433,26 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
     mask = (rr > 0) & (rr < hh - 1) & (cc > 0) & (cc < wh - 1) & (resp < thr[0])
     lab = label_components(mask)
     roots = int((mask & (lab == torch.arange(hh * wh, device=dev).reshape(hh, wh))).sum())
-    fitted = int((mask[4:-4, 4:-4]).sum())       # masked pixels inside the margin
+    fitted, fit_tiles = chain["fits"], chain["tiles_with_fits"]
     slots = int(valid.sum())                     # refine slots, whole batch
+    print(f"work {name} b{batch} turbo: {fitted} fits/frame in nms_extract_raw "
+          f"({100 * fitted / (hh * wh):.2f} % of the half plane) in {fit_tiles} tiles of "
+          f"64 x 64, {roots} roots/frame, {slots} refine slots in the batch of "
+          f"{valid.numel()}", flush=True)
+    # the record gate in its tile form: the cone taps at every pixel of a tile
+    # that holds a fit; per fit the vertical taps on five columns, the
+    # horizontal taps and the closed form (~30); x2: multiply + add
+    cone, fits = fit_taps(2)
+    tile_ops = 2.0 * len(cone)
+    row_ops = 2.0 * sum(5 * len(vt) + len(ht) for _, vt, ht in fits) + 30.0
     hpx = batch * (half_p.shape[1] - 16) * half_p.shape[2]
     px = batch * (raw_p.shape[1] - 16) * (raw_p.shape[2] // ch)
     nbytes = lambda *ts: float(sum(t.numel() * t.element_size() for t in ts))  # noqa: E731
+    nms_ops = STENCIL_OPS * hpx + batch * (fit_tiles * 4096 * tile_ops
+                                           + fitted * (row_ops + 98))
+    print(f"bound {name} b{batch} nms_extract_raw: bytes "
+          f"{nbytes(half_p, thr, cells) / PEAK_BYTES * 1e3:.4f} ms, operations of the "
+          f"tile form {nms_ops / PEAK_F32 * 1e3:.4f} ms", flush=True)
     rec[name].update({
         "front_decimate": dict(
             err=fd_err, ms=_ms(lambda: front_kernel_decimate(*args), 20),
@@ -440,10 +469,9 @@ def turbo_kernels(name: str, frames, rec: dict) -> None:
         "nms": dict(
             err=nms_err, ms=_ms(lambda: nms_extract_raw(*nargs), 10),
             plain_ms=_ms(lambda: nms_extract_raw_plain(*nargs), 1),
-            # a fit per masked pixel inside the margin, 49 compares per pass
-            # of the peak window
-            bound=_bound_ms(nbytes(half_p, thr, cells),
-                            STENCIL_OPS * hpx + batch * fitted * (FIT_OPS + 98)),
+            # the stencil, the tile form of the gate, 49 compares per pass of
+            # the peak window at each fitted pixel
+            bound=_bound_ms(nbytes(half_p, thr, cells), nms_ops),
         ),
         "refine": dict(
             err=rf_err, ms=_ms(lambda: sparse_refine_raw(*rargs), 20),
@@ -627,6 +655,24 @@ def synthetic_blur_planes(h: int = 250, w: int = 380, seed: int = 0):
     return tuple(frames), planes, thr
 
 
+def synthetic_luma_thresholds(names, half_p, thr, h: int, w: int, **other):
+    """Thresholds for the synthetic planes taken as luma planes (``half_p``:
+    their ``pad_half`` form on the card): an entry that blurs them first
+    thresholds the blurred planes at a share of each frame's own minimum
+    response, as the pipeline does (whole and empty keep ``thr``); ``other``
+    replaces a frame's share."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import _response_tile_min
+
+    shares = {"spiral": 0.05, "comb": 0.05, "checkerboard": 0.5, "lattice": 0.5,
+              "noise": 0.3, **other}
+    share = torch.tensor([shares.get(n, 0.0) for n in names], device="cuda")
+    rthr = _response_tile_min(half_p, CONSTANTS.blur_sigma, (h, w)).amin(-1) * share
+    return torch.where(share == 0.0, thr, rthr)
+
+
 def cluster_synthetic_check() -> None:
     """Both cluster entries against their plain versions on the synthetic
     planes, one batch with a different mask per frame: ``cluster_rochade``
@@ -647,7 +693,7 @@ def cluster_synthetic_check() -> None:
         cluster_rochade_raw_plain,
         sort_candidates,
     )
-    from aprilgrid_tpu_torch.kernels.frontend import _response_tile_min, pad_half
+    from aprilgrid_tpu_torch.kernels.frontend import pad_half
     from aprilgrid_tpu_torch.ops.cluster import label_components
     from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
 
@@ -658,13 +704,7 @@ def cluster_synthetic_check() -> None:
     hp, wp = -(-h // 64) * 64, -(-w // 128) * 128
     blur_p = torch.nn.functional.pad(planes, (0, wp - w, 0, hp - h))
     half_p = pad_half(planes)
-    # the luma-fed entry thresholds the blurred planes: a share of each
-    # frame's own minimum, as the pipeline does (whole and empty keep theirs)
-    shares = {"spiral": 0.05, "comb": 0.05, "checkerboard": 0.5, "lattice": 0.5,
-              "noise": 0.3}
-    share = torch.tensor([shares.get(n, 0.0) for n in names], device="cuda")
-    rthr = _response_tile_min(half_p, sigma, (h, w)).amin(-1) * share
-    rthr = torch.where(share == 0.0, thr, rthr)
+    rthr = synthetic_luma_thresholds(names, half_p, thr, h, w)
     runs = (
         ("cluster_rochade", planes, thr,
          cluster_rochade(blur_p, thr, h, w), cluster_rochade_plain(blur_p, thr, h, w)),
@@ -711,15 +751,62 @@ def cluster_synthetic_check() -> None:
               + ", ".join(said), flush=True)
 
 
+def _print_ptxas(source: str) -> list[dict]:
+    """What ptxas reported for the kernels of ``csrc/<source>``, one line
+    each; returns the records."""
+    from aprilgrid_tpu_torch.kernels import _lib
+
+    res = _lib.kernel_resources(source)
+    for r in res:
+        print(f"ptxas {source} {r['kernel']}: {r['registers']} registers, "
+              f"{r['stack_bytes']} B stack frame, spills {r['spill_store_bytes']}/"
+              f"{r['spill_load_bytes']} B (stores/loads), {r['smem_bytes']} B smem",
+              flush=True)
+    return res
+
+
+def _profile_split(calls: dict, iters: int = 10) -> dict:
+    """torch.profiler's device time of each entry of ``calls`` (name ->
+    function), mean over ``iters`` calls after one warm-up: per entry the ms
+    of each of this library's kernels by name, and under ``"at::"`` the
+    summed ms and the count per call of every other device operation the
+    call enqueues (PyTorch's own kernels, fills and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    split = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        own, other_ms, other_n = {}, 0.0, 0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue   # a host-side operator: its kernels are listed themselves
+            mine = re.search(r"(\w+_kernel)\(", ev.key)
+            if mine and "at::" not in ev.key:
+                own[mine.group(1)] = ev.device_time_total / ev.count / 1e3
+            else:
+                other_ms += ev.device_time_total / iters / 1e3
+                other_n += ev.count
+        if not own or min(own.values()) <= 0.0:
+            raise AssertionError(f"{name}: the profiler shows no device time: {own}")
+        split[name] = dict(own)
+        if other_n:
+            split[name]["at::"] = {"ms": other_ms, "per_call": other_n / iters}
+    return split
+
+
 def phase_cluster_split(card: str, batch: int) -> dict:
     """Device ms of each launch of the three cluster entries on two_boards
     at ``batch``: torch.profiler's device time by kernel name, mean of 10
     calls; prints what ptxas reported for the kernels of ``cluster.cu``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from aprilgrid_tpu_torch.config import CONSTANTS
-    from aprilgrid_tpu_torch.kernels import _lib
     from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade, cluster_rochade_raw
     from aprilgrid_tpu_torch.kernels.frontend import (
         front_kernel,
@@ -728,11 +815,7 @@ def phase_cluster_split(card: str, batch: int) -> dict:
     )
 
     sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
-    for r in _lib.kernel_resources("cluster.cu"):
-        print(f"ptxas cluster.cu {r['kernel']}: {r['registers']} registers, "
-              f"{r['stack_bytes']} B stack frame, spills {r['spill_store_bytes']}/"
-              f"{r['spill_load_bytes']} B (stores/loads), {r['smem_bytes']} B smem",
-              flush=True)
+    _print_ptxas("cluster.cu")
     img = torch.from_numpy(read_png(DATA / "two_boards.png")).cuda()
     frames = img[None].expand(batch, *img.shape).contiguous()
     raw_p, h, w, ch, u16 = pad_raw(frames)
@@ -740,26 +823,86 @@ def phase_cluster_split(card: str, batch: int) -> dict:
     thr = tmin.amin(-1) * ratio
     _, half_p, hmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
     hthr = hmin.amin(-1) * ratio
-    calls = {
+    split = _profile_split({
         "cluster_rochade_raw": lambda: cluster_rochade_raw(raw_p, thr, h, w, ch, u16, sigma),
         "cluster_rochade_raw[luma_f32]": lambda: cluster_rochade_raw(
             half_p, hthr, h // 2, w // 2, 1, False, sigma, 4, 1.0, True),
         "cluster_rochade": lambda: cluster_rochade(blur_p, thr, h, w),
+    })
+    # the wrappers' own fills are not launches of the entries
+    return {k: {n: ms for n, ms in v.items() if n != "at::"} for k, v in split.items()}
+
+
+def turbo_chain(frames) -> dict:
+    """The turbo path's kernel chain on ``frames`` (on the card) up to the
+    inputs of its last kernel: the arguments of ``nms_extract_raw`` and of
+    ``sparse_refine_raw`` as the path builds them, and what the data asks
+    of them (frame 0; the smoke's frames are copies)."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.kernels.cluster import _CAPF, saddles_from_candidates
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate, pad_raw
+    from aprilgrid_tpu_torch.kernels.nms import cells_to_fields, nms_extract_raw
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+    from aprilgrid_tpu_torch.ops.rochade import filter_and_compact
+
+    sigma = CONSTANTS.blur_sigma
+    raw_p, h, w, ch, u16 = pad_raw(frames)
+    hh, wh = h // 2, w // 2
+    _, half_p, tmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
+    thr = tmin.amin(-1) * CONSTANTS.response_threshold_ratio
+    nargs = (half_p, thr, hh, wh, sigma, 4, 1.0)
+    cells = nms_extract_raw(*nargs)
+    fields, n_peaks = cells_to_fields(cells, _CAPF)
+    half_s = filter_and_compact(
+        saddles_from_candidates(fields), DEFAULT_CAPACITIES.max_saddles,
+        CONSTANTS.saddle_k_ratio, DEFAULT_PARAMS.min_saddle_angle,
+        DEFAULT_PARAMS.max_saddle_angle,
+    )
+    centers, valid = half_s.p * 2.0 + 0.5, half_s.valid
+    rargs = (raw_p, centers, valid, h, w, ch, u16, sigma, 4, 1.0)
+    resp = hessian_response(gaussian_blur(half_p[:1, 8 : 8 + hh, :wh], sigma))[0]
+    fit = torch.zeros_like(resp, dtype=torch.bool)
+    fit[4:-4, 4:-4] = resp[4:-4, 4:-4] < thr[0]    # masked inside the margin: a fit each
+    hp, wp = half_p.shape[1] - 16, half_p.shape[2]
+    tiles = torch.nn.functional.pad(fit, (0, wp - wh, 0, hp - hh))
+    tiles = tiles.reshape(hp // 64, 64, wp // 64, 64).any(3).any(1)
+    return dict(
+        nargs=nargs, rargs=rargs, fits=int(fit.sum()), pixels=hp * wp,
+        tiles_with_fits=int(tiles.sum()), tiles=tiles.numel(),
+        peaks=int(n_peaks[0]), slots=int(valid[0].sum()), slot_rows=valid.shape[1],
+    )
+
+
+def phase_turbo_split(card: str, batch: int) -> dict:
+    """``nms_extract_raw`` and ``sparse_refine_raw`` on two_boards at
+    ``batch``, fed as the turbo path feeds them: device ms of each launch
+    (torch.profiler, mean of 10 calls), the summed device ms and the count
+    per call of the PyTorch operations each wrapper enqueues around its
+    launches, the event time of the whole call three times over (the
+    spread between calls of the same code), what the data asks (fits,
+    64 x 64 tiles that hold one, peaks, refine slots per frame) and what
+    ptxas reported for the kernels of ``nms.cu`` and ``refine.cu``."""
+    import torch
+
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw
+    from aprilgrid_tpu_torch.kernels.refine import sparse_refine_raw
+
+    res = _print_ptxas("nms.cu") + _print_ptxas("refine.cu")
+    img = torch.from_numpy(read_png(DATA / "two_boards.png")).cuda()
+    ch = turbo_chain(img[None].expand(batch, *img.shape).contiguous())
+    calls = {
+        "nms_extract_raw": lambda: nms_extract_raw(*ch["nargs"]),
+        "sparse_refine_raw": lambda: sparse_refine_raw(*ch["rargs"]),
     }
-    split = {}
+    split = _profile_split(calls)
     for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        split[name] = {
-            re.search(r"(\w+_kernel)\(", ev.key).group(1): ev.device_time_total / ev.count / 1e3
-            for ev in prof.key_averages() if "_kernel(" in ev.key and "at::" not in ev.key
-        }
-        if not split[name] or min(split[name].values()) <= 0.0:
-            raise AssertionError(f"{name}: the profiler shows no device time: {split[name]}")
+        split[name]["event_ms"] = [_ms(fn, 20) for _ in range(3)]
+    split["data"] = {k: v for k, v in ch.items() if k not in ("nargs", "rargs")}
+    split["ptxas"] = res
+    print(f"turbo split two_boards b{batch}, device ms per launch [{card}]: "
+          f"{json.dumps(split)}", flush=True)
     return split
 
 
@@ -790,6 +933,121 @@ def nms_tie_break_check() -> None:
             f"{(cells - pcells).abs().max().item()}"
         )
     print("kernels nms_extract_raw tie-break plane 96x128: 20 peaks, = plain", flush=True)
+
+
+def nms_synthetic_check() -> None:
+    """``nms_extract_raw`` against its plain version on the synthetic
+    planes taken as luma planes, a different mask in each frame of one
+    batch, at a shape (250 x 380) that is no multiple of the 64 x 64 tile:
+    a fit at every pixel inside the margin (whole), none (empty; the
+    blur flattens the checkerboard to the same), long blobs and irregular
+    ones that straddle tile corners and the 4-pixel margin (spiral, comb,
+    noise), a true saddle every 8 pixels, on the tile corners too
+    (lattice). The cell grids must be bit-equal."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import pad_half
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+
+    names, planes, thr = synthetic_blur_planes()
+    planes, thr = torch.from_numpy(planes).cuda(), torch.from_numpy(thr).cuda()
+    b, h, w = planes.shape
+    half_p = pad_half(planes)
+    # lower shares than the cluster check's: wide blobs, a fit at each pixel
+    rthr = synthetic_luma_thresholds(names, half_p, thr, h, w, spiral=0.002,
+                                     comb=0.002, noise=0.01)
+    cells = nms_extract_raw(half_p, rthr, h, w)
+    pcells = nms_extract_raw_plain(half_p, rthr, h, w)
+    torch.cuda.synchronize()
+    peaks = (cells[:, 5] > 0.5).sum((1, 2)).tolist()
+    ppeaks = (pcells[:, 5] > 0.5).sum((1, 2)).tolist()
+    if not torch.equal(cells, pcells):
+        raise AssertionError(
+            f"nms_extract_raw synthetic: peaks {dict(zip(names, peaks))} vs plain "
+            f"{dict(zip(names, ppeaks))}, max |diff| {(cells - pcells).abs().max().item()}")
+    resp = hessian_response(gaussian_blur(planes, CONSTANTS.blur_sigma))
+    fits = (resp < rthr[:, None, None])[:, 4:-4, 4:-4].sum((1, 2)).tolist()
+    got = dict(zip(names, zip(fits, peaks)))
+    if (got["whole"][0] != (h - 8) * (w - 8) or got["empty"] != (0, 0)
+            or min(got[n][1] for n in ("spiral", "comb", "lattice", "noise")) <= 0):
+        raise AssertionError(f"nms_extract_raw synthetic: (fits, peaks) {got}")
+    print(f"kernels nms_extract_raw synthetic {h}x{w} b{b}: cell grids bit-equal; "
+          + ", ".join(f"{n} {f} fits/{p} peaks" for n, (f, p) in got.items()), flush=True)
+
+
+def refine_slot_sets(c0: np.ndarray, v0: np.ndarray, h: int, w: int, seed: int = 0):
+    """Four slot sets for one (h, w) frame from its survivors (``c0``
+    (K, 2) f32 centres, ``v0`` (K,) bool), made from ``seed`` with numpy:
+    ``(names, centers (4, K, 2) f32, valid (4, K) bool)``. *every*: all K
+    slots valid, the survivors and centres spread over and 12 pixels
+    around the image; *none*: the same centres, no slot valid;
+    *interleaved*: survivors in the odd slots, the even slots invalid but
+    holding centres, so the valid slots are no prefix; *halves*: centres
+    on x.5 either side of the rounded survivors (the rounding's ties),
+    negative, on both sides of the 4-pixel bound, and far outside."""
+    rng = np.random.default_rng(seed)
+    k = c0.shape[0]
+    live = c0[v0]
+    spread = np.stack([rng.uniform(-12, w + 12, k), rng.uniform(-12, h + 12, k)], 1)
+    every = np.where(v0[:, None], c0, spread.astype(np.float32))
+    n = min(len(live), k // 2)
+    inter, vi = every.copy(), np.zeros(k, bool)
+    inter[1 : 2 * n : 2] = live[:n]
+    vi[1 : 2 * n : 2] = True
+    base = np.floor(live[: k // 4] + 0.5)
+    edge = [[-0.5, -0.5], [-1.5, 3.5], [-7.3, 20.0], [0.49, 0.5], [3.5, 3.5],
+            [3.49, 4.0], [4.0, 3.5], [w - 4.5, h - 4.5], [w - 5.5, h - 5.5],
+            [w - 5.0, h - 4.51], [w + 3.0, h + 100.0], [1e6, -1e6],
+            [w - 1.0, h - 1.0], [w - 0.5, 10.0]]
+    rows = np.concatenate([base + 0.5, base - 0.5, np.array(edge)])[:k]
+    halves, vh = np.zeros_like(c0), np.arange(k) < len(rows)
+    halves[: len(rows)] = rows
+    centers = np.stack([every, every, inter, halves]).astype(np.float32)
+    valid = np.stack([np.ones(k, bool), np.zeros(k, bool), vi, vh])
+    return ("every", "none", "interleaved", "halves"), centers, valid
+
+
+def refine_synthetic_check() -> None:
+    """``sparse_refine_raw`` against its plain version on the slot sets of
+    ``refine_slot_sets``, one set per frame of a 4-frame batch, on a u8
+    gray (EuRoC), a u16 gray (TUM_VI) and an RGB (two_boards) image: the
+    same ``valid``, and positions, k, theta and phi bit-equal on every
+    slot that went in valid."""
+    import torch
+
+    from aprilgrid_tpu_torch.kernels.refine import (
+        sparse_refine_raw,
+        sparse_refine_raw_plain,
+    )
+
+    for name in ("EuRoC", "TUM_VI", "two_boards"):
+        img = torch.from_numpy(read_png(DATA / f"{name}.png")).cuda()
+        frames = img[None].expand(4, *img.shape).contiguous()
+        rargs = turbo_chain(frames)["rargs"]
+        raw_p, c0, v0, h, w = rargs[:5]
+        sets, centers, valid = refine_slot_sets(c0[0].cpu().numpy(), v0[0].cpu().numpy(), h, w)
+        centers, valid = torch.from_numpy(centers).cuda(), torch.from_numpy(valid).cuda()
+        rs = sparse_refine_raw(raw_p, centers, valid, *rargs[3:])
+        prs = sparse_refine_raw_plain(raw_p, centers, valid, *rargs[3:])
+        torch.cuda.synchronize()
+        said = []
+        for i, s in enumerate(sets):
+            v = valid[i]
+            err = max(((getattr(rs, k)[i] - getattr(prs, k)[i])[v].abs().max().item()
+                       for k in ("p", "k", "theta", "phi")), default=0.0) if v.any() else 0.0
+            same = all(torch.equal(getattr(rs, k)[i][v], getattr(prs, k)[i][v])
+                       for k in ("p", "k", "theta", "phi"))
+            acc = int(rs.valid[i].sum())
+            if not (torch.equal(rs.valid[i], prs.valid[i]) and same) or (acc > 0) == (s == "none"):
+                raise AssertionError(
+                    f"sparse_refine_raw synthetic {name} {s}: {acc} accepted vs "
+                    f"{int(prs.valid[i].sum())} by the plain version, max |diff| {err}")
+            said.append(f"{s} {int(v.sum())} valid/{acc} accepted")
+        print(f"kernels sparse_refine_raw synthetic {name} {tuple(img.shape)} "
+              f"{valid.shape[1]} slots: bit-equal to the plain version; " + ", ".join(said),
+              flush=True)
 
 
 def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str,
@@ -1120,6 +1378,10 @@ def main() -> int:
     ap.add_argument("--cluster-only", action="store_true",
                     help="build, then only the kernel checks on two_boards and the "
                          "cluster entries' per-launch split")
+    ap.add_argument("--turbo-only", action="store_true",
+                    help="build, then only the turbo path's kernel checks (all four "
+                         "images, the NMS and refine synthetic cases) and the "
+                         "per-launch split of nms_extract_raw and sparse_refine_raw")
     args = ap.parse_args()
     import torch
 
@@ -1127,6 +1389,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     card = phase_build()
+    if args.turbo_only:
+        rec: dict = {n: {} for n in GOLDEN}
+        for name in GOLDEN:
+            img = torch.from_numpy(read_png(DATA / f"{name}.png")).cuda()
+            frames = img[None].expand(32 if name in TURBO else 8, *img.shape).contiguous()
+            turbo_kernels(name, frames, rec)
+        nms_tie_break_check()
+        nms_synthetic_check()
+        refine_synthetic_check()
+        _print_times(card, [(f"{n}.{k}", r) for n in GOLDEN for k, r in rec[n].items()])
+        phase_turbo_split(card, batch=32)
+        return 0
     if args.cluster_only:
         phase_kernels(card, batch=32, names=("two_boards",))
         split = phase_cluster_split(card, batch=32)
@@ -1136,6 +1410,7 @@ def main() -> int:
     if args.kernels_only:
         return 0
     split = phase_cluster_split(card, batch=32)
+    phase_turbo_split(card, batch=32)
     launches = phase_end_to_end(card, batch=32)
     launches.update(phase_split_chain(card, batch=32))
     for k, n in phase_plane_path(card, batch=32).items():

@@ -155,3 +155,75 @@ def test_merge_is_not_ported():
     half_p = torch.zeros((1, 80, 128))
     with pytest.raises(NotImplementedError, match="merge"):
         nms_extract_raw(half_p, torch.zeros(1), 60, 100, merge=4)
+
+
+# -- the premise of the kernel's record gate: the fit as stencils of a tile
+
+
+def _blur_plane(data_dir, case):
+    """A small f32 blur plane: a photograph's crop, a rendered scene's, or
+    random values (no structure at all)."""
+    from conftest import make_stress_scene
+
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur
+    from aprilgrid_tpu_torch.ops.gray import to_luma
+
+    if case == "random":
+        rng = np.random.default_rng(7)
+        return torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32))
+    if case == "EuRoC":
+        img = load_image(str(data_dir / "EuRoC.png"))[100:228, 200:456]
+    else:
+        img = make_stress_scene(2, kind=case)[300:428, 250:506]
+    return gaussian_blur(to_luma(torch.from_numpy(np.ascontiguousarray(img)))[0], 1.5)
+
+
+@pytest.mark.parametrize("case", ["EuRoC", "u8", "u16", "rgb", "random"])
+def test_record_planes_bit_equal_to_fit_record(data_dir, case):
+    """The fit does not depend on where its pixel is: evaluated as
+    stencils of the whole plane (``record_planes``: one smoothed plane, a
+    column stencil per vertical factor, a row stencil per coefficient) it
+    equals ``fit_record`` on the gathered 9x9 patch of every pixel at
+    least 4 from the edge, bit for bit, accepted or not."""
+    from aprilgrid_tpu_torch.ops.rochade import fit_record, gather_patches, record_planes
+
+    blur = _blur_plane(data_dir, case)
+    h, w = blur.shape
+    ys, xs = torch.meshgrid(torch.arange(4, h - 4), torch.arange(4, w - 4), indexing="ij")
+    want = fit_record(gather_patches(blur, xs.reshape(-1), ys.reshape(-1)))
+    got = record_planes(blur)
+    for g, e in zip(got, want):
+        assert g.shape == (h - 8, w - 8)
+        # NaN == NaN here: an exactly flat patch divides 0 by 1, never NaN
+        assert torch.equal(g.reshape(-1), e)
+    assert got[5].sum() > (0 if case == "random" else 50)
+
+
+@pytest.mark.parametrize("case", ["EuRoC", "u8"])
+def test_record_planes_matches_jax_record_planes(data_dir, case):
+    """Against the JAX kernels' dense record (``_record_planes``, compiled
+    for the CPU: its rolls wrap at the window edge, so interior pixels
+    only). The compiled chain contracts multiply-adds: c3..c5 agree to 4e-6
+    of the coefficient scale (measured 1.6e-6), the accept bit on all but
+    1 % of the accepted pixels (2 of 980: fits on the gate's edge), and the
+    offsets, a quotient that is ill-conditioned near a zero determinant,
+    to 1e-4 px on half and 1e-3 px on nine tenths of the pixels both
+    accept (measured 1.2e-4 at the ninth decile)."""
+    from aprilgrid_tpu.pallas.cluster import _record_planes
+
+    from aprilgrid_tpu_torch.ops.rochade import record_planes
+
+    blur = _blur_plane(data_dir, case)
+    h, w = blur.shape
+    got = [g.numpy() for g in record_planes(blur)]
+    jrec = jax.jit(lambda x: _record_planes(x, h, w, 4, 1.0))(jnp.asarray(blur.numpy()))
+    jrec = [np.asarray(x)[4:-4, 4:-4] for x in jrec]
+    scale = max(np.abs(got[k]).max() for k in (2, 3, 4))
+    for k in (2, 3, 4):
+        np.testing.assert_allclose(got[k], jrec[k], rtol=0, atol=4e-6 * scale)
+    ok, jok = got[5], jrec[5].astype(bool)
+    assert ok.sum() > 50 and (ok != jok).sum() <= 0.01 * ok.sum()
+    both = ok & jok
+    for k in (0, 1):
+        err = np.abs(got[k] - jrec[k])[both]
+        assert np.median(err) < 1e-4 and np.quantile(err, 0.9) < 1e-3

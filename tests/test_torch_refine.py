@@ -124,3 +124,107 @@ def test_sparse_refine_checks_its_arguments():
     with pytest.raises(ValueError, match="hp2"):
         sparse_refine_raw(raw, c, v, 64, 128, hp2=6)
     assert not sparse_refine_raw(raw, c, v, 64, 128).valid.any()
+
+
+# -- the refine kernel's per-slot work, gates inside, as a numpy model
+
+
+def _refine_kernel_model(raw_p, centers, valid, h, w, ch, u16, hp2=4):
+    """What ``csrc/refine.cu`` does for each (frame, slot), in numpy on
+    the padded frames: a slot that is not valid -> a row of zeros; else
+    round the centre half away from zero, gate it against the ``hp2``
+    bound, clamp it into the image, gather the 15x15 raw patch with
+    clamped indices, luma, the two blur passes in tap order, the fit, the
+    angles. Returns (B, K, 8) rows [x, y, k, theta, phi, ok, 0, 0]; the
+    valid slots are taken in whatever order they lie, not as a prefix."""
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_kernel
+    from aprilgrid_tpu_torch.ops.gray import raw_luma
+
+    taps = gaussian_kernel(1.5)
+    b, k = valid.shape
+    out = np.zeros((b, k, 8), np.float32)
+    off = np.arange(15) - 7
+    for bi in range(b):
+        live = np.nonzero(valid[bi])[0]
+        if len(live) == 0:
+            continue
+        c = centers[bi, live]
+        rnd = np.copysign(np.floor(np.abs(c) + np.float32(0.5)), c).astype(np.int64)
+        cxr, cyr = rnd[:, 0], rnd[:, 1]
+        inside = (cyr >= hp2) & (cyr < h - hp2) & (cxr >= hp2) & (cxr < w - hp2)
+        rx, ry = np.clip(cxr, 0, w - 1), np.clip(cyr, 0, h - 1)
+        yy = np.clip(ry[:, None] + off, 0, h - 1) + 8          # padded rows
+        xx = np.clip(rx[:, None] + off, 0, w - 1)
+        cols = (ch * xx)[:, None, :, None] + np.arange(ch)     # (n, 1, 15, ch)
+        patch = raw_p[bi][yy[:, :, None, None], cols].reshape(len(live), 15, 15 * ch)
+        lum = raw_luma(torch.from_numpy(patch), ch, u16)[0].numpy()
+        tmp = np.zeros((len(live), 15, 9), np.float32)
+        for i, kw in enumerate(taps):
+            tmp = tmp + lum[:, :, i : i + 9] * kw
+        bl = np.zeros((len(live), 9, 9), np.float32)
+        for i, kw in enumerate(taps):
+            bl = bl + tmp[:, i : i + 9, :] * kw
+        x0, y0, c3, c4, c5, ok = trochade.fit_record(torch.from_numpy(bl))
+        # the angles at the slots' own positions in a (1, K) row: PyTorch's
+        # CPU atan2 and acos differ in the last bit between the vector body
+        # and the scalar tail of their loops
+        spread = torch.zeros((3, 1, k))
+        spread[:, 0, live] = torch.stack([c3, c4, c5])
+        kk, theta, phi = (t[0, live] for t in trochade.saddle_angles(*spread))
+        out[bi, live] = np.stack([
+            rx.astype(np.float32) + x0.numpy(), ry.astype(np.float32) + y0.numpy(),
+            kk.numpy(), theta.numpy(), phi.numpy(),
+            (ok.numpy() & inside).astype(np.float32),
+            np.zeros(len(live), np.float32), np.zeros(len(live), np.float32),
+        ], 1)
+    return out
+
+
+_SLOT_FRAMES = {}
+
+
+def _slot_frames(data_dir, kind):
+    """A crop of one raw mode and the four slot sets of
+    ``chip_smoke.refine_slot_sets`` around the oracle's saddles."""
+    import sys
+
+    sys.path.insert(0, str(data_dir.parent.parent))
+    import chip_smoke
+
+    if kind not in _SLOT_FRAMES:
+        name, crop = ("iphone", (416, 640)) if kind == "rgb" else ("EuRoC", (385, 501))
+        img = R.load_image(str(data_dir / f"{name}.png"))[: crop[0], : crop[1]]
+        if kind == "u16":
+            img = img.astype(np.uint16) * 257
+        c0, v0 = _centers(img, k=768)
+        _SLOT_FRAMES[kind] = (img, *chip_smoke.refine_slot_sets(c0, v0, *img.shape[:2]))
+    return _SLOT_FRAMES[kind]
+
+
+@pytest.mark.parametrize("slots", ["every", "none", "interleaved", "halves"])
+@pytest.mark.parametrize("kind", ["u8", "u16", "rgb"])
+def test_refine_kernel_model_equals_plain(data_dir, kind, slots):
+    """The kernel's per-slot work with the gates inside equals
+    ``sparse_refine_raw_plain`` bit for bit on every slot that goes in
+    valid — all 768 slots valid, none, valid slots interleaved with
+    invalid ones, centres on x.5 (the rounding's ties), negative, either
+    side of the 4-pixel bound and far outside the image — with the same
+    accept bits, and rows of zeros elsewhere."""
+    from aprilgrid_tpu_torch.kernels.refine import sparse_refine_raw_plain
+
+    img, names, centers, valid = _slot_frames(data_dir, kind)
+    i = names.index(slots)
+    h, w = img.shape[:2]
+    raw, _, _, ch, u16 = pad_raw(torch.from_numpy(img)[None])
+    c, v = centers[i : i + 1], valid[i : i + 1]
+    rows = _refine_kernel_model(raw.numpy(), c, v, h, w, ch, u16)
+    want = sparse_refine_raw_plain(raw, torch.from_numpy(c), torch.from_numpy(v), h, w, ch, u16)
+    np.testing.assert_array_equal(rows[..., 5] > 0.5, want.valid.numpy())
+    np.testing.assert_array_equal(rows[v][:, 0:2], want.p.numpy()[v])
+    for col, field in ((2, "k"), (3, "theta"), (4, "phi")):
+        np.testing.assert_array_equal(rows[v][:, col], getattr(want, field).numpy()[v])
+    assert not rows[~v].any()
+    assert (slots == "none") == (not want.valid.any())
+    if slots == "halves":   # centres on the rounding's ties, and gated ones
+        frac = np.abs(c[0][v[0]]) % 1
+        assert (frac == 0.5).sum() > 100 and (~want.valid.numpy()[v]).sum() > 14
