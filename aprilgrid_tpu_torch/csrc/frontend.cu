@@ -5,32 +5,49 @@
 // (emit_blur=False, the hybrid detector's main path). The TPU kernel walks
 // 64-row tiles in order with the whole frame width in VMEM; here every
 // (frame, 64-row tile, 64-column strip) is an independent block that stages
-// its raw pixels plus a 4-pixel halo in shared memory (stencil.cuh).
+// its raw pixels plus a 4-pixel halo in shared memory. ag_front_kernel
+// launches front_tile_kernel. The response minimum is reduced per block
+// and the last (cross-block) reduction over the strips of a tile is left
+// to the caller, as the JAX pipeline takes the global minimum outside its
+// kernel.
 //
-// Bound on the H100: memory. Per pixel it reads the raw bytes (1-3) and
-// writes one luma byte, against ~40 f32 operations, far below the card's
-// operations-per-byte balance point. The design keeps the f32 luma and blur
-// planes out of device memory entirely (they live only in shared memory),
-// so device traffic is the raw read plus the luma8 write; the halo re-read
-// (72x72 staged for 64x64 produced, ~27%) hits L2. The response minimum is
-// reduced per block and the last (cross-block) reduction over the strips of
-// a tile is left to the caller, as the JAX pipeline takes the global
-// minimum outside its kernel.
+// Bound on the H100: instruction rate and latency, not bytes. The first
+// version (front_kernel below, on stencil.cuh's blur_tile) moved 270 MB
+// in 0.507 ms at two_boards b32 (chip_smoke.py --front-only; H100 80GB
+// HBM3 at 700 W), a sixth of the card's bytes rate, and u8 gray cost as
+// much per pixel as RGB with three times the bytes. Per pixel, from its
+// source (chip_smoke.py::front_op_counts): luma8 and the staged luma each
+// read the raw bytes one at a time, ~28 shared-memory accesses (7 loads per
+// output of each blur pass, 9 for the Hessian), a 32-bit divide and modulo
+// in each of five index loops, an IEEE divide per u8 gray pixel, ~45 f32
+// operations. front_tile_kernel keeps the block, the values and their op
+// order and cuts the rest: one 4-, 8- or 12-byte load per quad of 4 raw
+// pixels at a 32-bit offset, a thread's loads all in flight before it
+// converts any (RGB: three at a time), luma8 from the same bytes in one
+// 4-byte store; u8 gray through a 256-entry table of __fdiv_rn(v, 255)
+// built by the block; 16 horizontal outputs a thread from a 24-value
+// register window, 6 vertical rows a thread down a 7-row window, 4 Hessian
+// rows down a 3-row window, the border test only in blocks that hold a
+// border pixel; rows an odd number of 16-byte words apart, so 16-byte
+// shared accesses meet no bank conflict:
+// ~2.6 shared accesses a pixel (+1.3 table loads for u8 gray) and five
+// blocks an SM. It runs at about half the first version's time, still ~3x
+// its byte bound: what is left is the latency between each block's five
+// barrier-separated phases and the instructions around the f32 chain. With
+// a blur pointer the blurred pixels leave as 16-byte rows from registers
+// (the TPU kernel's emit_blur=True, the input of the blur-fed cluster
+// kernel, cluster.cu's ag_cluster_rochade). Times and the steps that led
+// here: PERF.md, section 6.
 //
 // The turbo path's front kernel (ag_front_kernel_decimate, replacing
 // pallas/frontend.py::front_kernel_decimate) is two launches: decimate_kernel
 // writes the full-resolution luma8 and the half-resolution f32 luma plane
 // (2x2 pairwise mean, in the padded layout with the half plane's own edge
-// values replicated), then front_kernel runs on that plane in MODE_F32 for
-// the half-resolution response minima. Bound: memory again — raw read,
-// luma8 write and the half plane (one f32 per four pixels) written once;
-// the second launch reads the half plane back, which a later fusion of the
-// two launches would save.
-//
-// With a blur pointer the front kernel also writes the f32 blur plane of the
-// whole padded frame (the TPU kernel's emit_blur=True): the input of the
-// blur-fed cluster kernel (cluster.cu, ag_cluster_rochade). Bound: memory,
-// now dominated by the 4-byte plane written once per pixel.
+// values replicated), then front_kernel — the first version of the front
+// kernel, kept for this launch alone until the decimating entry is
+// redesigned — runs on that plane in MODE_F32 for the half-resolution
+// response minima. The second launch reads the half plane back, which a
+// fusion of the two launches would save.
 //
 // gray_kernel (replacing pallas/frontend.py::gray_kernel) is the front
 // kernel's gray conversion alone: bare raw frames -> f32 and u8 luma planes
@@ -47,12 +64,18 @@
 // border of the true image and in all padding before the minimum is taken.
 // Bound: memory — 4 bytes read and 8 written per pixel against ~42 f32
 // operations.
+#include <type_traits>
+
 #include "stencil.cuh"
 
 namespace {
 
 using namespace ag;
 
+// The first front kernel, on stencil.cuh's blur_tile. ag_front_kernel no
+// longer launches it: it serves only the second launch of
+// ag_front_kernel_decimate (MODE_F32 on the half plane, no luma8, no blur
+// plane) until that entry is redesigned.
 __global__ void __launch_bounds__(THREADS)
 front_kernel(const void* raw, int hp, int wp, int channels, int mode, int h,
              int w, Taps7 taps, uint8_t* luma8, float* blur, float* strip_min,
@@ -183,6 +206,316 @@ decimate_kernel(const void* raw, int hp, int wp, int channels, int mode,
   }
 }
 
+// ---- front_tile_kernel: ag_front_kernel's stencil, register-blocked ----
+//
+// Same block (frame, 64-row tile, 64-column strip), 256 threads, same
+// values in the same op order as front_kernel; what changes is how often
+// each value passes through an instruction. Rows of the staged luma and
+// of the horizontal pass are an odd number of 16-byte words apart, so
+// eight lanes on eight consecutive rows (the horizontal pass) or on eight
+// consecutive words of one row (every other pass) hit distinct banks with
+// their 16-byte accesses. 44,832 B of shared memory and at most 48
+// registers a thread let five blocks share an SM.
+constexpr int FT_LSTR = 76;      // staged luma: 72 columns (+4)
+constexpr int FT_TSTR = 76;      // horizontal outputs: 68 columns (+8)
+constexpr int FT_QUADS = 18;     // 4-column quads of a staged row (72)
+constexpr int FT_HGROUP = 16;    // horizontal outputs a thread keeps
+constexpr int FT_HGROUPS = 4;    // full groups of a row: outputs 0..63
+constexpr int FT_VQUADS = 17;    // vertical-pass quads: 68 >= TCOLS columns
+constexpr int FT_VRUN = 6;       // rows a thread walks in the vertical pass
+constexpr int FT_VRUNS = BROWS / FT_VRUN;         // 11
+constexpr int FT_RRUN = 4;       // rows a thread walks in the Hessian pass
+constexpr int FT_BLOCKS = 5;     // blocks an SM holds
+static_assert(FT_VRUNS * FT_VRUN == BROWS, "vertical runs tile the rows");
+static_assert((STRIP_W / 4) * (TILE_H / FT_RRUN) == THREADS,
+              "one Hessian run per thread");
+static_assert(FT_HGROUPS * FT_HGROUP + 8 == LCOLS, "the tail window ends the row");
+static_assert(LROWS * FT_HGROUPS % 32 == 0, "tail items fill warps of their own");
+
+struct FrontTileSmem {
+  float lum[LROWS][FT_LSTR];     // staged luma, then the blurred tile
+  float tmp[LROWS][FT_TSTR];     // horizontal pass
+  float lut[256];                // u8 gray: __fdiv_rn(v, 255.0f)
+  float warp_min[THREADS / 32];
+};
+
+// The raw modes of ag_front_kernel, one staging loop each.
+constexpr int RAW_GRAY8 = 0, RAW_GRAY16 = 1, RAW_RGB8 = 2;
+
+// u8 luma of an RGB pixel (image crate to_luma8), as luma_u8.
+__device__ __forceinline__ uint32_t rgb_u8(uint32_t r, uint32_t g, uint32_t b) {
+  return (2126u * r + 7152u * g + 722u * b) / 10000u;
+}
+
+// f32 luma of an RGB pixel, as luma_f32 (explicit FMAs).
+__device__ __forceinline__ float rgb_f32(uint32_t r, uint32_t g, uint32_t b) {
+  float acc = __fmul_rn((float)r, kLumaR);
+  acc = __fmaf_rn((float)g, kLumaG, acc);
+  return __fmaf_rn((float)b, kLumaB, acc);
+}
+
+// u8 luma of a u16 gray pixel, as luma_u8.
+__device__ __forceinline__ uint32_t gray16_u8(uint32_t v) {
+  float x = (float)v;
+  float q = __fdiv_rn(__fadd_rn(__fmul_rn(x, 255.0f), 32767.0f), 65535.0f);
+  return (uint32_t)(int)floorf(q);
+}
+
+// The raw bytes of one staged quad: 4 u8, 4 u16 or 4 RGB pixels.
+template <int RAW>
+using RawQuad = typename std::conditional<
+    RAW == RAW_GRAY8, uint32_t,
+    typename std::conditional<RAW == RAW_GRAY16, uint2, uint3>::type>::type;
+
+// Stages the block's 72 x 72 luma (rows 64 ti - 4 .. 64 ti + 67 and
+// columns c0 - 4 .. c0 + 67 of the image, columns clamped to [0, w)) into
+// s.lum. A quad is 4 columns of one row, read with one 4-, 8- or 12-byte
+// load; a thread starts the loads of its quads (RGB: three at a time, for
+// the registers) before it converts any, so their latencies overlap. A
+// quad that holds a clamped column, or any quad of an unaligned frame,
+// takes the per-element path. Quads of the tile's own rows and columns
+// also write their 4 luma8 bytes in one store. Addresses are 32-bit
+// offsets from the block's first staged row and first luma8 pixel.
+template <int RAW>
+__device__ __forceinline__ void stage_quads(FrontTileSmem& s, const void* raw,
+                                            int b, int ti, int si, int hp,
+                                            int wp, int w, bool aligned,
+                                            uint8_t* luma8) {
+  using Elem = typename std::conditional<RAW == RAW_GRAY16, uint16_t, uint8_t>::type;
+  constexpr int ch = RAW == RAW_RGB8 ? 3 : 1;
+  constexpr int mode = RAW == RAW_GRAY16 ? MODE_U16 : MODE_U8;
+  constexpr int ITEMS = LROWS * FT_QUADS;
+  constexpr int PER = (ITEMS + THREADS - 1) / THREADS;
+  constexpr int BATCH = RAW == RAW_RGB8 ? 3 : PER;
+  const int c0 = si * STRIP_W;
+  const int row_elems = wp * ch;
+  // padded row 64 ti + 4 = staged row 0
+  const Elem* rows =
+      (const Elem*)raw + ((size_t)b * (hp + 16) + ti * TILE_H + 4) * row_elems;
+  uint8_t* own = luma8 + ((size_t)b * hp + ti * TILE_H) * wp + c0;
+#pragma unroll
+  for (int p0 = 0; p0 < PER; p0 += BATCH) {
+    RawQuad<RAW> q[BATCH];
+#pragma unroll
+    for (int p = 0; p < BATCH; ++p) {
+      const int i = threadIdx.x + (p0 + p) * THREADS;
+      const int y = i / FT_QUADS, c = c0 - HALO + 4 * (i - y * FT_QUADS);
+      if (i < ITEMS && aligned && c >= 0 && c + 3 < w)
+        q[p] = *reinterpret_cast<const RawQuad<RAW>*>(rows + y * row_elems + ch * c);
+    }
+#pragma unroll
+    for (int p = 0; p < BATCH; ++p) {
+      const int i = threadIdx.x + (p0 + p) * THREADS;
+      if (i >= ITEMS) break;
+      const int y = i / FT_QUADS, k = i - y * FT_QUADS;
+      const int c = c0 - HALO + 4 * k;
+      float4 f;
+      uint32_t l8;
+      if (aligned && c >= 0 && c + 3 < w) {
+        if constexpr (RAW == RAW_GRAY8) {
+          const uint32_t v = q[p];
+          l8 = v;
+          f = make_float4(s.lut[v & 255u], s.lut[(v >> 8) & 255u],
+                          s.lut[(v >> 16) & 255u], s.lut[v >> 24]);
+        } else if constexpr (RAW == RAW_GRAY16) {
+          const uint2 v = q[p];
+          const uint32_t x0 = v.x & 0xffffu, x1 = v.x >> 16;
+          const uint32_t x2 = v.y & 0xffffu, x3 = v.y >> 16;
+          f = make_float4(__fdiv_rn((float)x0, 65535.0f), __fdiv_rn((float)x1, 65535.0f),
+                          __fdiv_rn((float)x2, 65535.0f), __fdiv_rn((float)x3, 65535.0f));
+          l8 = gray16_u8(x0) | gray16_u8(x1) << 8 | gray16_u8(x2) << 16 |
+               gray16_u8(x3) << 24;
+        } else {
+          const uint3 v = q[p];
+          // bytes r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3
+          const uint32_t r0 = v.x & 255u, g0 = (v.x >> 8) & 255u, b0 = (v.x >> 16) & 255u;
+          const uint32_t r1 = v.x >> 24, g1 = v.y & 255u, b1 = (v.y >> 8) & 255u;
+          const uint32_t r2 = (v.y >> 16) & 255u, g2 = v.y >> 24, b2 = v.z & 255u;
+          const uint32_t r3 = (v.z >> 8) & 255u, g3 = (v.z >> 16) & 255u, b3 = v.z >> 24;
+          f = make_float4(rgb_f32(r0, g0, b0), rgb_f32(r1, g1, b1),
+                          rgb_f32(r2, g2, b2), rgb_f32(r3, g3, b3));
+          l8 = rgb_u8(r0, g0, b0) | rgb_u8(r1, g1, b1) << 8 |
+               rgb_u8(r2, g2, b2) << 16 | rgb_u8(r3, g3, b3) << 24;
+        }
+      } else {
+        float e[4];
+        l8 = 0;
+        for (int j = 0; j < 4; ++j) {
+          const int cc = min(max(c + j, 0), w - 1);
+          e[j] = luma_f32(rows, (size_t)y * row_elems, cc, ch, mode);
+          l8 |= (uint32_t)luma_u8(rows, (size_t)y * row_elems, cc, ch, mode) << (8 * j);
+        }
+        f = make_float4(e[0], e[1], e[2], e[3]);
+      }
+      *reinterpret_cast<float4*>(&s.lum[y][4 * k]) = f;
+      // the tile's own rows and columns: staged rows 4..67, quads 1..16
+      if (y >= HALO && y < TILE_H + HALO && k >= 1 && k <= STRIP_W / 4)
+        *reinterpret_cast<uint32_t*>(own + (y - HALO) * wp + 4 * (k - 1)) = l8;
+    }
+  }
+}
+
+// Horizontal pass: tmp[y][x] = sum_k lum[y][x + k] * taps[k] (the blur at
+// image column c0 - 1 + x). A thread computes 16 adjacent outputs of one
+// row from a 24-value window of six 16-byte loads, storing each 4 as they
+// are done, lanes walking rows; the last two outputs of each row (64, 65)
+// come from the window of columns 64..71 in warps of their own, which also
+// write columns 66, 67 (zeros, read only into vertical-pass columns that
+// no response reads).
+__device__ __forceinline__ void horizontal_pass(FrontTileSmem& s, const Taps7& taps) {
+  for (int i = threadIdx.x; i < LROWS * (FT_HGROUPS + 1); i += THREADS) {
+    const int g = i / LROWS, y = i - g * LROWS;
+    const float4* src = reinterpret_cast<const float4*>(&s.lum[y][FT_HGROUP * g]);
+    float4* dst = reinterpret_cast<float4*>(&s.tmp[y][FT_HGROUP * g]);
+    if (g == FT_HGROUPS) {
+      const float4 a = src[0], e = src[1];
+      const float v[8] = {a.x, a.y, a.z, a.w, e.x, e.y, e.z, e.w};
+      float o[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 7; ++k) acc = __fadd_rn(acc, __fmul_rn(v[j + k], taps.k[k]));
+        o[j] = acc;
+      }
+      dst[0] = make_float4(o[0], o[1], 0.0f, 0.0f);
+      continue;
+    }
+    float v[FT_HGROUP + 8];
+#pragma unroll
+    for (int q = 0; q < FT_HGROUP / 4 + 2; ++q) {
+      const float4 t = src[q];
+      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z, v[4 * q + 3] = t.w;
+    }
+#pragma unroll
+    for (int q = 0; q < FT_HGROUP / 4; ++q) {
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 7; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(v[4 * q + j + k], taps.k[k]));
+        o[j] = acc;
+      }
+      dst[q] = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 vtap(float4 acc, float4 v, float t) {
+  return make_float4(__fadd_rn(acc.x, __fmul_rn(v.x, t)), __fadd_rn(acc.y, __fmul_rn(v.y, t)),
+                     __fadd_rn(acc.z, __fmul_rn(v.z, t)), __fadd_rn(acc.w, __fmul_rn(v.w, t)));
+}
+
+// Vertical pass into lum[0..BROWS)[0..68): row y is the blur at image row
+// 64 ti - 1 + y. A thread walks FT_VRUN rows of a 4-column quad with a
+// 7-row window in registers: one 16-byte load and one store per row.
+__device__ __forceinline__ void vertical_pass(FrontTileSmem& s, const Taps7& taps) {
+  for (int i = threadIdx.x; i < FT_VQUADS * FT_VRUNS; i += THREADS) {
+    const int run = i / FT_VQUADS, q = i - run * FT_VQUADS;
+    const int y0 = run * FT_VRUN;
+    float4 win[7];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+      win[r] = *reinterpret_cast<const float4*>(&s.tmp[y0 + r][4 * q]);
+#pragma unroll
+    for (int r = 0; r < FT_VRUN; ++r) {
+      win[6] = *reinterpret_cast<const float4*>(&s.tmp[y0 + r + 6][4 * q]);
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) acc = vtap(acc, win[k], taps.k[k]);
+      *reinterpret_cast<float4*>(&s.lum[y0 + r][4 * q]) = acc;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) win[k] = win[k + 1];
+    }
+  }
+}
+
+// Columns 4q .. 4q + 5 of blurred-tile row y: one 16- and one 8-byte load.
+__device__ __forceinline__ void load_row6(const FrontTileSmem& s, int y, int q,
+                                          float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(&s.lum[y][4 * q]);
+  const float2 e = *reinterpret_cast<const float2*>(&s.lum[y][4 * q + 4]);
+  dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w, dst[4] = e.x, dst[5] = e.y;
+}
+
+// The Hessian response of output rows y0 .. y0 + FT_RRUN - 1, columns
+// 4q .. 4q + 3 of the block, from a rotating 3-row window of the blurred
+// tile (6 columns a row: output column 4q + j is the centre of j .. j + 2);
+// returns their minimum. With BORDER the block holds a pixel of the image's
+// one-pixel border or of the padding, whose response is 0; other blocks
+// skip the test. With ``blur`` (pixel (r0, c) of the frame's blur plane,
+// rows ``wp`` apart) the blurred pixels go out as 16-byte rows.
+template <bool BORDER>
+__device__ __forceinline__ float response_run(const FrontTileSmem& s, int q,
+                                              int y0, int r0, int c, int h,
+                                              int w, float* blur, int wp) {
+  float up[6], mid[6], dn[6];
+  load_row6(s, y0, q, up);
+  load_row6(s, y0 + 1, q, mid);
+  bool col_in[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col_in[j] = c + j != 0 && c + j < w - 1;
+  float m = INFINITY;
+#pragma unroll
+  for (int r = 0; r < FT_RRUN; ++r) {
+    load_row6(s, y0 + r + 2, q, dn);
+    // the reference leaves the image border 0; rows >= h are padding
+    const bool row_in = r0 + r > 0 && r0 + r < h - 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = hessian_of(up[j], up[j + 1], up[j + 2], mid[j], mid[j + 1],
+                           mid[j + 2], dn[j], dn[j + 1], dn[j + 2]);
+      if (BORDER && !(row_in && col_in[j])) v = 0.0f;
+      m = v < m ? v : m;
+    }
+    if (blur != nullptr)
+      *reinterpret_cast<float4*>(blur + (size_t)r * wp) =
+          make_float4(mid[1], mid[2], mid[3], mid[4]);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) up[j] = mid[j], mid[j] = dn[j];
+  }
+  return m;
+}
+
+// ag_front_kernel's block: stage, blur, then the Hessian response of the
+// tile's 64 x 64 pixels — a thread owns 4 adjacent columns of FT_RRUN rows
+// — border zeroed, reduced to the block's minimum.
+__global__ void __launch_bounds__(THREADS, FT_BLOCKS)
+front_tile_kernel(const void* raw, int hp, int wp, int raw_mode, int h, int w,
+                  bool aligned, Taps7 taps, uint8_t* luma8, float* blur,
+                  float* strip_min, int n_strips) {
+  __shared__ __align__(16) FrontTileSmem s;
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (raw_mode == RAW_GRAY8) {
+    s.lut[tid] = __fdiv_rn((float)tid, 255.0f);
+    __syncthreads();
+    stage_quads<RAW_GRAY8>(s, raw, b, ti, si, hp, wp, w, aligned, luma8);
+  } else if (raw_mode == RAW_GRAY16) {
+    stage_quads<RAW_GRAY16>(s, raw, b, ti, si, hp, wp, w, aligned, luma8);
+  } else {
+    stage_quads<RAW_RGB8>(s, raw, b, ti, si, hp, wp, w, aligned, luma8);
+  }
+  __syncthreads();
+  horizontal_pass(s, taps);
+  __syncthreads();
+  vertical_pass(s, taps);
+  __syncthreads();
+
+  const int q = tid % (STRIP_W / 4), y0 = (tid / (STRIP_W / 4)) * FT_RRUN;
+  const int r0 = ti * TILE_H + y0, c = si * STRIP_W + 4 * q;
+  float* brow = blur != nullptr ? blur + ((size_t)b * hp + r0) * wp + c : nullptr;
+  // a border pixel: row 0 or >= h - 1, column 0 or >= w - 1
+  const bool border = ti == 0 || (ti + 1) * TILE_H >= h || si == 0 ||
+                      (si + 1) * STRIP_W >= w;
+  float m = border ? response_run<true>(s, q, y0, r0, c, h, w, brow, wp)
+                   : response_run<false>(s, q, y0, r0, c, h, w, brow, wp);
+  m = block_min(m, s.warp_min);
+  if (tid == 0) strip_min[((size_t)b * gridDim.y + ti) * n_strips + si] = m;
+}
+
 Taps7 taps_of(const float* taps7) {
   Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
@@ -209,8 +542,16 @@ extern "C" int ag_front_kernel(const void* raw, int b, int hp, int wp,
                                int channels, int mode, int h, int w,
                                const float* taps7, void* luma8, void* blur,
                                void* strip_min, void* stream) {
-  return launch_front(raw, b, hp, wp, channels, mode, h, w, taps_of(taps7),
-                      luma8, blur, strip_min, (cudaStream_t)stream);
+  const int n_strips = wp / STRIP_W;
+  const int raw_mode =
+      channels == 3 ? RAW_RGB8 : mode == MODE_U16 ? RAW_GRAY16 : RAW_GRAY8;
+  // the quads' 4- (u8) or 8-byte (u16) loads; rows start 128-byte aligned
+  const bool aligned = (uintptr_t)raw % (mode == MODE_U16 ? 8 : 4) == 0;
+  dim3 grid(n_strips, hp / TILE_H, b);
+  front_tile_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      raw, hp, wp, raw_mode, h, w, aligned, taps_of(taps7), (uint8_t*)luma8,
+      (float*)blur, (float*)strip_min, n_strips);
+  return (int)cudaGetLastError();
 }
 
 // luma: (b, hin, win) f32; (h, w) the true image size, hp = ceil(h / 64) *

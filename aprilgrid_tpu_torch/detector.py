@@ -92,7 +92,8 @@ class TagDetector:
     per frame.
 
     Only the hybrid mode exists so far: ``mode="xla"`` raises
-    NotImplementedError (ROADMAP.md lists the slice that brings it)."""
+    NotImplementedError (ROADMAP.md lists the slice that brings it), any
+    other mode ValueError, as the JAX facade does."""
 
     def __init__(
         self,
@@ -104,7 +105,9 @@ class TagDetector:
         mode: str = "hybrid",
         decimate: bool | str = False,
     ) -> None:
-        if mode != "hybrid":
+        if mode not in ("hybrid", "xla"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "xla":
             raise NotImplementedError(
                 f"mode={mode!r}: only the hybrid mode is ported; the "
                 "on-device board search is queued in ROADMAP.md"
@@ -157,7 +160,8 @@ class TagDetector:
         self, imgs, chunk: int | None = None
     ) -> list[dict[int, list[tuple[float, float]]]]:
         """Detect over a batch of same-shape frames (axis 0). ``chunk``
-        sizes the sub-batches (default: ``_default_chunk``)."""
+        sizes the sub-batches (default: the ``AG_CHUNK`` environment
+        variable if set, else ``_default_chunk``)."""
         return self._detect_hybrid(_as_tensor(imgs), chunk=chunk)
 
     def refined_saddle_points(self, img) -> list[Saddle]:
@@ -187,7 +191,8 @@ class TagDetector:
         if self.params.max_num_of_boards == 0 or b == 0:
             return results  # no pass reads a front-end: dispatch none
         if chunk is None:
-            chunk = _default_chunk(*hw)
+            env = os.environ.get("AG_CHUNK")
+            chunk = int(env) if env is not None else _default_chunk(*hw)
         chunk = max(1, int(chunk))
         n_chunks = -(-b // chunk)
         dec = self._use_decimate(*hw)

@@ -4,10 +4,12 @@
 ``pallas/frontend.py::front_kernel``: padded raw frames -> u8 luma plane +
 response tile minima (the exact hybrid path), and with ``emit_blur=True``
 also the padded f32 blur plane that feeds ``cluster_rochade``. On a CUDA
-tensor it launches ``csrc/frontend.cu``; on a CPU tensor it runs
-``front_kernel_plain``, the same function in plain PyTorch. What bounds
-each kernel on the H100 and what its design does about it is noted at the
-top of ``csrc/frontend.cu``.
+tensor it launches ``csrc/frontend.cu::front_tile_kernel``; on a CPU
+tensor it runs ``front_kernel_plain``, the same function in plain PyTorch.
+What bounds each kernel on the H100 and what its design does about it is
+noted at the top of ``csrc/frontend.cu`` (for ``front_kernel``: what bound
+the first version as measured, and how the register-blocked stencil that
+replaced it answers that).
 
 ``front_kernel_decimate`` replaces
 ``pallas/frontend.py::front_kernel_decimate``, the turbo path's front

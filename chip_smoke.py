@@ -24,7 +24,9 @@ Phases (a failing phase raises, so the script exits non-zero):
    shape that is no multiple of its tile) and the refine kernel on slot
    sets no frame produces (every slot valid, none, valid slots that are
    no prefix, centres on the rounding's ties, negative and outside the
-   image) on u8, u16 and RGB frames; the plane path's kernels
+   image) on u8, u16 and RGB frames; the front kernel in both modes on
+   synthetic u8, u16 and RGB noise with saturated values, of shapes that
+   are no tile multiple, at batch 1 and 3; the plane path's kernels
    (``fused_frontend`` cropped and padded, ``gray_kernel``, the front
    kernel's ``emit_blur`` mode, the blur-fed ``cluster_rochade``) on every
    image at batch 32; both cluster entries on synthetic masks no
@@ -62,7 +64,9 @@ repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
 phase 2, for a first check of new kernels; ``--cluster-only`` runs phase 2
 on two_boards alone, for work on the cluster kernels; ``--turbo-only`` runs
 the turbo path's kernel checks, the NMS and refine synthetic cases and their
-per-launch split, for work on those two kernels).
+per-launch split, for work on those two kernels; ``--front-only`` runs the
+front kernel's synthetic check and ``phase_front_split``, for work on the
+front kernel).
 """
 
 from __future__ import annotations
@@ -293,6 +297,7 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     nms_synthetic_check()
     refine_synthetic_check()
     cluster_synthetic_check()
+    front_synthetic_check()
 
     spec = get_family("t36h11")
     codes = spec.code_bits_tensor(dev)
@@ -906,6 +911,141 @@ def phase_turbo_split(card: str, batch: int) -> dict:
     return split
 
 
+# (h, w) of the front kernel's synthetic frames: widths that are no
+# multiple of its 64-column strip or of the 128-column padding, heights
+# that are no multiple of its 64-row tile but one, a frame narrower than
+# one strip
+FRONT_SHAPES = ((100, 200), (64, 130), (37, 50), (129, 257))
+
+
+def synthetic_raw_frames(mode: str, h: int, w: int, batch: int, seed: int = 0):
+    """(batch, h, w[, 3]) raw frames of one of the front kernel's raw modes
+    ("u8", "u16", "rgb") from ``seed``: uniform noise over the whole range,
+    a tenth of the pixels at the top value (255 or 65535), a twentieth at 0
+    and a saturated square in the top-left corner."""
+    rng = np.random.default_rng(seed)
+    top = 65535 if mode == "u16" else 255
+    shape = (batch, h, w, 3) if mode == "rgb" else (batch, h, w)
+    img = rng.integers(0, top + 1, shape)
+    img[rng.random(shape) < 0.1] = top
+    img[rng.random(shape) < 0.05] = 0
+    img[:, : h // 3, : w // 3] = top
+    return img.astype(np.uint16 if mode == "u16" else np.uint8)
+
+
+def front_synthetic_check() -> None:
+    """``front_kernel`` in both modes against its plain version on
+    synthetic frames (``synthetic_raw_frames``) of every raw mode and of
+    every shape of ``FRONT_SHAPES``, at batch 1 and 3: bit-equal."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_plain, pad_raw
+
+    n = 0
+    for mode in ("u8", "u16", "rgb"):
+        for h, w in FRONT_SHAPES:
+            for batch in (1, 3):
+                frames = torch.from_numpy(
+                    synthetic_raw_frames(mode, h, w, batch, seed=n)).cuda()
+                raw_p, _, _, ch, u16 = pad_raw(frames)
+                for emit_blur in (False, True):
+                    args = (raw_p, CONSTANTS.blur_sigma, (h, w), ch, u16, emit_blur)
+                    got, want = front_kernel(*args), front_kernel_plain(*args)
+                    torch.cuda.synchronize()
+                    if not all(g.shape == p.shape and torch.equal(g, p)
+                               for g, p in zip(got, want)):
+                        err = max((g.float() - p.float()).abs().max().item()
+                                  for g, p in zip(got, want))
+                        raise AssertionError(
+                            f"front_kernel synthetic {mode} {h}x{w} b{batch} "
+                            f"emit_blur={emit_blur}: max |diff| {err}")
+                n += 1
+    print(f"kernels front_kernel synthetic: u8/u16/rgb x {FRONT_SHAPES} x b1/b3 x "
+          f"both modes ({2 * n} runs), noise with saturated values: bit-equal",
+          flush=True)
+
+
+def front_op_counts() -> dict:
+    """Per output pixel of ``ag_front_kernel``'s kernel, worked out from
+    ``csrc/frontend.cu`` and ``csrc/stencil.cuh`` for a 64 x 64 block:
+    global load instructions per raw mode, shared-memory load/store
+    instructions (``shared``; u8 gray adds ``lut`` table loads), f32
+    operations of the stencil and integer divide/modulo pairs.
+
+    ``front_kernel`` (PRs 1-6; now the decimating entry's second launch):
+    luma8 straight from raw byte by byte; the 72 x 72 f32 luma staged
+    element by element (byte loads again); horizontal pass 72 x 66, 7
+    loads + 1 store each; vertical pass 66 x 66, the same; Hessian 9 loads.
+    ``front_tile_kernel``: 72 x 18 quads staged from one 4-, 8- or 12-byte
+    load each, luma8 from the same bytes; per row 4 horizontal groups of 16
+    outputs (6 + 4 16-byte accesses) and a tail of 2 (2 + 1); 17 x 11
+    vertical runs of 6 rows of a quad, 12 + 6; 256 Hessian runs of 4 rows,
+    6 x 2."""
+    px = 64.0 * 64.0
+    stage, hor, ver = 72 * 72 / px, 72 * 66 / px, 66 * 66 / px
+    quads = 72 * 18 / px
+    return {
+        "front_kernel": {
+            "global_loads": {"u8": 1 + stage, "u16": 1 + stage, "rgb": 3 * (1 + stage)},
+            "shared": stage + 8 * hor + 8 * ver + 9,
+            "f32": 14 * hor + 14 * ver + 13 + 1,
+            "int_divmod_pairs": 1 + stage + hor + ver + 1,
+        },
+        "front_tile_kernel": {
+            "global_loads": {"u8": quads, "u16": quads, "rgb": 3 * quads},
+            "shared": (72 * 18 + 72 * 4 * 10 + 72 * 3 + 17 * 11 * 18 + 256 * 12) / px,
+            "lut": 4 * quads,
+            "f32": (72 * 66 + 68 * 66) * 14 / px + 13 + 1,
+            "int_divmod_pairs": (72 * 18 + 72 * 5 + 17 * 11) / px,
+        },
+    }
+
+
+def phase_front_split(card: str, batch: int) -> dict:
+    """``front_kernel`` in both modes on the four golden images at
+    ``batch``, as the exact path and the split chain feed it: bit-equal to
+    the plain version first, then the device ms of each launch
+    (torch.profiler, mean of 10 calls; the wrapper's ``strip_min.amin(-1)``
+    under ``at::``), the event ms of the whole call three times over, the
+    bytes bound, and what ptxas reported for the kernels of
+    ``frontend.cu``; the per-pixel instruction counts of
+    ``front_op_counts`` beside them."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_plain, pad_raw
+
+    res = _print_ptxas("frontend.cu")
+    split: dict = {}
+    for name in GOLDEN:
+        img = torch.from_numpy(read_png(DATA / f"{name}.png")).cuda()
+        raw_p, h, w, ch, u16 = pad_raw(img[None].expand(batch, *img.shape).contiguous())
+        calls = {}
+        for emit_blur in (False, True):
+            args = (raw_p, CONSTANTS.blur_sigma, (h, w), ch, u16, emit_blur)
+            got, want = front_kernel(*args), front_kernel_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, p) for g, p in zip(got, want)):
+                raise AssertionError(f"front_kernel {name} emit_blur={emit_blur}: "
+                                     "differs from its plain version")
+            key = f"{name}[emit_blur]" if emit_blur else name
+            calls[key] = lambda args=args: front_kernel(*args)
+            out_bytes = sum(t.numel() * t.element_size() for t in got)
+            split[key] = {"bound_ms": _bound_ms(
+                raw_p.numel() * raw_p.element_size() + out_bytes,
+                (5.0 + STENCIL_OPS) * got[-1].shape[0] * (raw_p.shape[1] - 16)
+                * (raw_p.shape[2] // ch))}
+        for key, times in _profile_split(calls).items():
+            split[key].update(times)
+            split[key]["event_ms"] = [_ms(calls[key], 20) for _ in range(3)]
+    split["per_pixel"] = front_op_counts()
+    split["ptxas"] = res
+    print(f"front split b{batch}, bit-equal both modes, device ms per launch "
+          f"[{card}]: {json.dumps(split)}", flush=True)
+    return split
+
+
 def nms_tie_break_check() -> None:
     """The NMS kernel on a plane with planted equal responses: a 3-pixel
     checkerboard maps onto itself under shifts by (3, +-3), so pixels 3
@@ -1378,6 +1518,10 @@ def main() -> int:
     ap.add_argument("--cluster-only", action="store_true",
                     help="build, then only the kernel checks on two_boards and the "
                          "cluster entries' per-launch split")
+    ap.add_argument("--front-only", action="store_true",
+                    help="build, then only front_kernel: both modes bit-equal on the "
+                         "four images and on synthetic frames, per-launch split, "
+                         "event ms and ptxas")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -1389,6 +1533,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     card = phase_build()
+    if args.front_only:
+        front_synthetic_check()
+        phase_front_split(card, batch=32)
+        return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
         for name in GOLDEN:

@@ -101,3 +101,29 @@ def test_warn_counters(col):
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TagDetector(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["foo", "XLA", ""])
+def test_unknown_mode_raises_value_error(mode):
+    with pytest.raises(ValueError, match="unknown mode") as jerr:
+        JaxDetector("t36h11", mode=mode)
+    with pytest.raises(ValueError, match="unknown mode") as terr:
+        TagDetector(device="cpu", mode=mode)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_ag_chunk_env_sizes_the_chunks(det, data_dir, monkeypatch):
+    img = load_image(str(data_dir / "EuRoC.png"))
+    frames = np.stack([img, img[:, ::-1].copy(), img])
+    want = det.detect_batch(frames)
+    sizes = []
+    run_chunk = TagDetector._detect_chunk
+
+    def counted(self, chunk_frames, *a, **k):
+        sizes.append(int(chunk_frames.shape[0]))
+        return run_chunk(self, chunk_frames, *a, **k)
+
+    monkeypatch.setattr(TagDetector, "_detect_chunk", counted)
+    monkeypatch.setenv("AG_CHUNK", "1")
+    assert det.detect_batch(frames) == want
+    assert sizes == [1, 1, 1]
