@@ -98,9 +98,12 @@ def parse_ptxas(text: str) -> list[dict]:
     out = []
     for mangled, stack, st, ld, regs, rest in found:
         name = re.findall(r"\d+([a-z][a-z_]*_kernel)", mangled)
+        # a kernel template's instance: its integer argument, as <n>
+        arg = re.search(r"_kernelILi(\d+)EE", mangled)
+        kernel = name[-1] + (f"<{arg.group(1)}>" if arg else "") if name else mangled
         smem = re.search(r"(\d+) bytes smem", rest)
         out.append({
-            "kernel": name[-1] if name else mangled, "registers": int(regs),
+            "kernel": kernel, "registers": int(regs),
             "stack_bytes": int(stack), "spill_store_bytes": int(st),
             "spill_load_bytes": int(ld), "smem_bytes": int(smem.group(1)) if smem else 0,
         })

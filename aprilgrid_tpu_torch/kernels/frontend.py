@@ -14,7 +14,8 @@ replaced it answers that).
 ``front_kernel_decimate`` replaces
 ``pallas/frontend.py::front_kernel_decimate``, the turbo path's front
 kernel: the same luma8, plus the half-resolution f32 luma plane (2x2 mean)
-and the response minima taken at half resolution.
+and the response minima taken at half resolution, in one launch of
+``csrc/frontend.cu::front_decimate_kernel`` on a CUDA tensor.
 
 ``fused_frontend`` replaces ``pallas/frontend.py::fused_frontend``, the
 plane path's stencil: f32 luma planes -> blur and Hessian-response planes,

@@ -24,9 +24,11 @@ Phases (a failing phase raises, so the script exits non-zero):
    shape that is no multiple of its tile) and the refine kernel on slot
    sets no frame produces (every slot valid, none, valid slots that are
    no prefix, centres on the rounding's ties, negative and outside the
-   image) on u8, u16 and RGB frames; the front kernel in both modes on
-   synthetic u8, u16 and RGB noise with saturated values, of shapes that
-   are no tile multiple, at batch 1 and 3; the plane path's kernels
+   image) on u8, u16 and RGB frames; the front kernel in both modes and
+   the decimating front kernel on synthetic u8, u16 and RGB noise with
+   saturated values, of shapes that are no tile multiple, at batch 1 and 3
+   (the decimating one also on a raw array one element off alignment);
+   the plane path's kernels
    (``fused_frontend`` cropped and padded, ``gray_kernel``, the front
    kernel's ``emit_blur`` mode, the blur-fed ``cluster_rochade``) on every
    image at batch 32; both cluster entries on synthetic masks no
@@ -66,7 +68,9 @@ on two_boards alone, for work on the cluster kernels; ``--turbo-only`` runs
 the turbo path's kernel checks, the NMS and refine synthetic cases and their
 per-launch split, for work on those two kernels; ``--front-only`` runs the
 front kernel's synthetic check and ``phase_front_split``, for work on the
-front kernel).
+front kernel; ``--decimate-only`` runs the decimating front kernel's
+synthetic check, ``phase_decimate_split`` and ``phase_hamming_split``, for
+work on those two kernels).
 """
 
 from __future__ import annotations
@@ -298,6 +302,7 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     refine_synthetic_check()
     cluster_synthetic_check()
     front_synthetic_check()
+    front_decimate_synthetic_check()
 
     spec = get_family("t36h11")
     codes = spec.code_bits_tensor(dev)
@@ -791,7 +796,7 @@ def _profile_split(calls: dict, iters: int = 10) -> dict:
         for ev in prof.key_averages():
             if "CUDA" not in str(getattr(ev, "device_type", "")):
                 continue   # a host-side operator: its kernels are listed themselves
-            mine = re.search(r"(\w+_kernel)\(", ev.key)
+            mine = re.search(r"(\w+_kernel(?:<\d+>)?)\(", ev.key)
             if mine and "at::" not in ev.key:
                 own[mine.group(1)] = ev.device_time_total / ev.count / 1e3
             else:
@@ -973,10 +978,11 @@ def front_op_counts() -> dict:
     instructions (``shared``; u8 gray adds ``lut`` table loads), f32
     operations of the stencil and integer divide/modulo pairs.
 
-    ``front_kernel`` (PRs 1-6; now the decimating entry's second launch):
-    luma8 straight from raw byte by byte; the 72 x 72 f32 luma staged
-    element by element (byte loads again); horizontal pass 72 x 66, 7
-    loads + 1 store each; vertical pass 66 x 66, the same; Hessian 9 loads.
+    ``front_kernel`` (the first version, later also the decimating entry's
+    second launch; since removed): luma8 straight from raw byte by byte; the 72 x
+    72 f32 luma staged element by element (byte loads again); horizontal
+    pass 72 x 66, 7 loads + 1 store each; vertical pass 66 x 66, the same;
+    Hessian 9 loads.
     ``front_tile_kernel``: 72 x 18 quads staged from one 4-, 8- or 12-byte
     load each, luma8 from the same bytes; per row 4 horizontal groups of 16
     outputs (6 + 4 16-byte accesses) and a tail of 2 (2 + 1); 17 x 11
@@ -1043,6 +1049,234 @@ def phase_front_split(card: str, batch: int) -> dict:
     split["ptxas"] = res
     print(f"front split b{batch}, bit-equal both modes, device ms per launch "
           f"[{card}]: {json.dumps(split)}", flush=True)
+    return split
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer lies one element past
+    an aligned address: the kernels' vector loads may not be used on it."""
+    import torch
+
+    src = t.view(torch.int16) if t.dtype == torch.uint16 else t   # u16 copies via int16
+    buf = src.new_empty(src.numel() + 1)
+    out = buf[1:].view(src.shape)
+    out.copy_(src)
+    return out.view(t.dtype)
+
+
+def front_decimate_synthetic_check() -> None:
+    """``front_kernel_decimate`` against its plain version (``torch.equal``
+    on luma8, the half plane and the tile minima) on synthetic frames
+    (``synthetic_raw_frames``) of every raw mode and every shape of
+    ``FRONT_SHAPES`` — (129, 257) has a luma8 grid taller and wider than
+    twice the half plane's, (37, 50) an odd height whose last raw row
+    belongs to no half row — at batch 1 and 3, and once per raw mode on a
+    raw array whose data pointer is one element off alignment."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel_decimate,
+        front_kernel_decimate_plain,
+        pad_raw,
+    )
+
+    n = 0
+    for mode in ("u8", "u16", "rgb"):
+        for h, w in FRONT_SHAPES:
+            for batch in (1, 3):
+                frames = torch.from_numpy(
+                    synthetic_raw_frames(mode, h, w, batch, seed=100 + n)).cuda()
+                raw_p, _, _, ch, u16 = pad_raw(frames)
+                runs = [("aligned", raw_p)]
+                if (h, w) == FRONT_SHAPES[0] and batch == 3:
+                    runs.append(("misaligned", _misaligned(raw_p)))
+                for label, raw in runs:
+                    args = (raw, CONSTANTS.blur_sigma, (h, w), ch, u16)
+                    got = front_kernel_decimate(*args)
+                    want = front_kernel_decimate_plain(*args)
+                    torch.cuda.synchronize()
+                    if not all(g.shape == p.shape and torch.equal(g, p)
+                               for g, p in zip(got, want)):
+                        err = [(g.float() - p.float()).abs().max().item()
+                               for g, p in zip(got, want)]
+                        raise AssertionError(
+                            f"front_kernel_decimate synthetic {mode} {h}x{w} b{batch} "
+                            f"{label}: max |diff| luma8/half/tile-min {err}")
+                    n += 1
+    print(f"kernels front_kernel_decimate synthetic: u8/u16/rgb x {FRONT_SHAPES} x "
+          f"b1/b3 + a misaligned raw pointer per mode ({n} runs), noise with "
+          "saturated values: bit-equal", flush=True)
+
+
+def decimate_op_counts() -> dict:
+    """Per half-resolution output pixel (four raw pixels) of
+    ``ag_front_kernel_decimate``, worked out from ``csrc/frontend.cu`` and
+    ``csrc/stencil.cuh`` as ``front_op_counts`` does: global load
+    instructions per raw mode, shared-memory accesses, f32 operations of
+    the stencil, IEEE divides per raw mode and integer divide/modulo pairs.
+
+    The first design, two launches: ``decimate_kernel``, one thread per
+    half slot, reads each raw pixel twice byte by byte (luma8 and the f32
+    luma, an IEEE divide per u8/u16 element for the f32 luma and per u16
+    element for luma8) and writes the f32 half plane; then
+    ``front_kernel`` in MODE_F32 reads the half plane back (72 x 72 f32
+    loads a block, element by element) and runs ``front_kernel``'s
+    stencil. ``front_decimate_kernel``, one launch: 72 x 18 half quads
+    staged from two rows of 8 raw pixels each (two 8- or 16-byte loads,
+    RGB six 8-byte loads; u8 gray: 16 table loads; u16: the divide as a
+    product and one FMA correction, 3 f32 operations a raw pixel; RGB: 3 a
+    raw pixel), the mean in registers (4 f32 operations a half pixel), the
+    64 x 16 own quads stored to the half plane (16 bytes) and luma8 (2 x 8
+    bytes); then ``front_tile_kernel``'s passes. ``i2f``: integer-to-float
+    conversions. The luma8 tail (rows at and beyond 2 * (h // 2), quads
+    that reach w // 2) is left out: it touches the last half tile or strip
+    only."""
+    px = 64.0 * 64.0
+    stage, hor, ver = 72 * 72 / px, 72 * 66 / px, 66 * 66 / px
+    first = front_op_counts()["front_kernel"]
+    tile = front_op_counts()["front_tile_kernel"]
+    quads, own = 72 * 18 / px, 64 * 16 / px
+    return {
+        "front_decimate_kernel": {
+            "global_loads": {"u8": 2 * quads, "u16": 2 * quads, "rgb": 6 * quads},
+            "global_stores": 3 * own,
+            "shared": tile["shared"],
+            "lut": {"u8": 16 * quads, "u16": 0, "rgb": 0},
+            "f32": {"u8": tile["f32"] + 16 * quads,
+                    "u16": tile["f32"] + 16 * quads + 3 * 16 * quads,
+                    "rgb": tile["f32"] + 16 * quads + 3 * 16 * quads},
+            "i2f": {"u8": 0, "u16": 16 * quads, "rgb": 3 * 16 * quads},
+            "ieee_divides": {"u8": 256 / px, "u16": 0, "rgb": 0},
+            "int_divmod_pairs": (72 * 18 + 72 * 5 + 17 * 11) / px,
+        },
+        "decimate_kernel": {
+            "global_loads": {"u8": 8, "u16": 8, "rgb": 24},
+            "global_stores": 3,
+            "ieee_divides": {"u8": 4, "u16": 8, "rgb": 0},
+            "f32": {"u8": 3, "u16": 3, "rgb": 3 + 12},
+        },
+        "front_kernel[MODE_F32]": {
+            "global_loads": stage,
+            "shared": first["shared"],
+            "f32": first["f32"],
+            "int_divmod_pairs": stage + hor + ver + 1,
+        },
+    }
+
+
+def phase_decimate_split(card: str, batch: int) -> dict:
+    """``front_kernel_decimate`` on the four golden images at ``batch``:
+    bit-equal to the plain version first, then the device ms of each launch
+    (torch.profiler, mean of 10 calls; the wrapper's ``strip_min.amin(-1)``
+    under ``at::``), the event ms of the whole call three times over, the
+    bound, what ptxas reported for the kernels of ``frontend.cu`` and the
+    per-pixel counts of ``decimate_op_counts``."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel_decimate,
+        front_kernel_decimate_plain,
+        pad_raw,
+    )
+
+    res = _print_ptxas("frontend.cu")
+    split: dict = {}
+    calls = {}
+    for name in GOLDEN:
+        img = torch.from_numpy(read_png(DATA / f"{name}.png")).cuda()
+        raw_p, h, w, ch, u16 = pad_raw(img[None].expand(batch, *img.shape).contiguous())
+        args = (raw_p, CONSTANTS.blur_sigma, (h, w), ch, u16)
+        got, want = front_kernel_decimate(*args), front_kernel_decimate_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+            raise AssertionError(f"front_kernel_decimate {name}: differs from its plain version")
+        calls[name] = lambda args=args: front_kernel_decimate(*args)
+        l8, half_p, tmin = got
+        px = batch * (raw_p.shape[1] - 16) * (raw_p.shape[2] // ch)
+        hpx = batch * (half_p.shape[1] - 16) * half_p.shape[2]
+        split[name] = {"bound_ms": _bound_ms(
+            sum(t.numel() * t.element_size() for t in (raw_p, l8, half_p, tmin)),
+            11.0 * px + STENCIL_OPS * hpx)}
+    for name, times in _profile_split(calls).items():
+        split[name].update(times)
+        split[name]["event_ms"] = [_ms(calls[name], 20) for _ in range(3)]
+    split["per_pixel"] = decimate_op_counts()
+    split["ptxas"] = res
+    print(f"decimate split b{batch}, bit-equal, device ms per launch [{card}]: "
+          f"{json.dumps(split)}", flush=True)
+    return split
+
+
+def phase_hamming_split(card: str, batch: int) -> dict:
+    """``hamming_scan`` on the exact path, in one torch.profiler session:
+    one ``detect_batch`` of two_boards at ``batch`` — the scan kernel's
+    launches, device ms each, and the device's idle gap before each launch
+    (the end of the previous device operation to the scan's start) — then,
+    on the rows of the smoke's scan (``batch`` frames x 384 rows vs t36h11),
+    10 launches each of the full scan, of one row (the table packed by one
+    block plus one thread's walk of every code), of one code (every row
+    packed, one compare each) and of one row and one code (the launch
+    floor), their mean device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.families import get_family
+    from aprilgrid_tpu_torch.kernels.decode import hamming_scan
+
+    img = read_png(DATA / "two_boards.png")
+    det = TagDetector("t36h11", device="cuda")
+    frames = np.stack([img] * batch)
+    codes = get_family("t36h11").code_bits_tensor(torch.device("cuda"))
+    rng = np.random.default_rng(3)
+    rots = torch.from_numpy(rng.integers(0, 2, (batch, 4 * 96, codes.shape[1]))
+                            .astype(np.float32)).cuda()
+    shapes = {
+        "full": (rots, codes), "one_row": (rots[:1, :1].contiguous(), codes),
+        "one_code": (rots, codes[:1].contiguous()),
+        "floor": (rots[:1, :1].contiguous(), codes[:1].contiguous()),
+    }
+    det.detect_batch(frames)
+    for a in shapes.values():
+        hamming_scan(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det.detect_batch(frames)
+        torch.cuda.synchronize()
+        for a in shapes.values():
+            for _ in range(10):
+                hamming_scan(*a)
+            torch.cuda.synchronize()
+    dev = sorted((ev for ev in prof.events()
+                  if "CUDA" in str(getattr(ev, "device_type", ""))),
+                 key=lambda ev: ev.time_range.start)
+    scans = [i for i, ev in enumerate(dev) if "hamming_scan_kernel" in ev.name]
+    n_path = len(scans) - 10 * len(shapes)
+    if n_path <= 0:
+        raise AssertionError(f"hamming split: {len(scans)} scan launches traced")
+    path = dev[: scans[n_path]]                    # detect_batch's device work
+    gaps, prev_end = [], path[0].time_range.start
+    for ev in path:
+        if "hamming_scan_kernel" in ev.name:
+            gaps.append(max(ev.time_range.start - prev_end, 0) / 1e3)
+        prev_end = max(prev_end, ev.time_range.end)
+    probe = [dev[i].time_range.elapsed_us() / 1e3 for i in scans[n_path:]]
+    split = {
+        "exact_path": {
+            "launches": n_path,
+            "device_ms": [dev[i].time_range.elapsed_us() / 1e3 for i in scans[:n_path]],
+            "idle_gap_before_ms": gaps,
+            "device_busy_ms": sum(ev.time_range.elapsed_us() for ev in path) / 1e3,
+            "device_span_ms": (prev_end - path[0].time_range.start) / 1e3,
+        },
+        "probe_device_ms": {k: sum(probe[10 * i : 10 * i + 10]) / 10
+                            for i, k in enumerate(shapes)},
+        "probe_event_ms": _ms(lambda: hamming_scan(rots, codes), 50),
+    }
+    print(f"hamming split two_boards b{batch} exact path [{card}]: {json.dumps(split)}",
+          flush=True)
     return split
 
 
@@ -1522,6 +1756,11 @@ def main() -> int:
                     help="build, then only front_kernel: both modes bit-equal on the "
                          "four images and on synthetic frames, per-launch split, "
                          "event ms and ptxas")
+    ap.add_argument("--decimate-only", action="store_true",
+                    help="build, then only front_kernel_decimate: bit-equal on the "
+                         "four images and on synthetic frames (a misaligned raw "
+                         "pointer included), per-launch split, event ms and ptxas; "
+                         "and hamming_scan's split on the exact path")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -1536,6 +1775,11 @@ def main() -> int:
     if args.front_only:
         front_synthetic_check()
         phase_front_split(card, batch=32)
+        return 0
+    if args.decimate_only:
+        front_decimate_synthetic_check()
+        phase_decimate_split(card, batch=32)
+        phase_hamming_split(card, batch=32)
         return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}

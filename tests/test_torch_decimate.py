@@ -103,6 +103,113 @@ def test_front_kernel_decimate_matches_jax(data_dir, key):
     assert gmin == float(jnp.min(resp))
 
 
+# ---- the CUDA kernel's block walk (csrc/frontend.cu::front_decimate_kernel)
+#
+# A numpy model of how the one launch covers its three outputs: blocks over
+# the half grid or, where it is taller or wider, the luma8 grid; each half
+# tile staged from raw quads of 2 x 8 pixels (half coordinates clamped per
+# element only where a quad leaves the half plane or the frame is
+# unaligned), the 2x2 mean in its association; luma8 of the block's own
+# unclamped half quads from the staged bytes and of everything else it owns
+# (rows at and beyond 2 * (h // 2), quads that reach w // 2, blocks beyond
+# the half grid, an unaligned frame) from the padded raw rows; half_p's own
+# pixels and replica rows. Every output element must be written exactly
+# once, and the whole must equal front_kernel_decimate_plain bit for bit.
+
+# (h, w): luma8 grid taller and wider than twice the half grid; odd height
+# and width; tile-aligned
+_DECIMATE_SHAPES = [(129, 257), (37, 50), (256, 512)]
+
+
+def _decimate_model(raw, channels, u16, true_shape, taps, aligned=True):
+    """(luma8 (B, Hp, Wp), half_p (B, Hhp+16, Whp), tile_min (B, Hhp/64))
+    as the kernel's blocks compute them."""
+    from test_torch_frontend import _T, _luma_model, _stencil_model
+
+    h, w = true_shape
+    hh, wh = h // 2, w // 2
+    b, rows, row_elems = raw.shape
+    hp, wp = rows - 16, row_elems // channels
+    hhp, whp = -(-hh // _T) * _T, -(-wh // 128) * 128
+    n_ht, n_hs = hhp // _T, whp // _T
+    n_t, n_s = max(n_ht, -(-hp // (2 * _T))), max(n_hs, wp // (2 * _T))
+    lf, l8 = _luma_model(raw.reshape(b, rows, wp, channels), channels, u16)
+
+    # staging: staged row y = half row clamp(64 ti - 4 + y); quad k = half
+    # columns 64 si - 4 + 4k .. +3, raw columns 2x, 2x + 1 of each
+    yu = _T * np.arange(n_ht)[:, None] - 4 + np.arange(72)[None, :]      # (T, 72)
+    yr = np.clip(yu, 0, hh - 1)
+    xq = _T * np.arange(n_hs)[:, None] - 4 + 4 * np.arange(18)[None, :]  # (S, 18)
+    vec = aligned & (xq >= 0) & (xq + 3 < wh)
+    x = xq[..., None] + np.arange(4)                                     # (S, 18, 4)
+    xc = np.where(vec[..., None], x, np.clip(x, 0, wh - 1))
+    assert xc.min() >= 0 and 2 * xc.max() + 1 < w     # every quad reads the image
+    r0 = (2 * yr + 8)[None, :, None, :, None, None]
+    c0 = (2 * xc)[None, None, :, None, :, :]
+    four = [lf[np.arange(b)[:, None, None, None, None, None], r0 + dr, c0 + dc]
+            for dr in (0, 1) for dc in (0, 1)]
+    lum = ((four[0] + four[1]) + (four[2] + four[3])) * np.float32(0.25)
+    lum = lum.reshape(b, n_ht, n_hs, 72, 72)
+
+    half_p = np.zeros((b, hhp + 16, whp), np.float32)
+    n_half = np.zeros(half_p.shape[1:], int)
+    for ti in range(n_ht):
+        for si in range(n_hs):
+            rows_, cols = slice(8 + _T * ti, 8 + _T * ti + _T), slice(_T * si, _T * si + _T)
+            half_p[:, rows_, cols] = lum[:, ti, si, 4:68, 4:68]
+            n_half[rows_, cols] += 1
+            if ti == 0:                           # replicas of half row 0
+                half_p[:, :8, cols] = lum[:, ti, si, None, 0, 4:68]
+                n_half[:8, cols] += 1
+            if ti == n_ht - 1:                    # replicas of half row hh - 1
+                half_p[:, hhp + 8 :, cols] = lum[:, ti, si, None, 71, 4:68]
+                n_half[hhp + 8 :, cols] += 1
+    assert (n_half == 1).all()
+
+    # luma8: each block's own half quads (64 rows x 16), 2 raw rows x 8 raw
+    # columns each, the staged bytes where the quad is unclamped, the padded
+    # raw rows as they stand otherwise
+    luma8 = np.zeros((b, hp, wp), np.uint8)
+    n8 = np.zeros((hp, wp), int)
+    for ti in range(n_t):
+        for si in range(n_s):
+            for yh in range(_T * ti, _T * ti + _T):
+                for xh in range(_T * si, _T * si + _T, 4):
+                    r, c = 2 * yh, 2 * xh
+                    if r >= hp or c >= wp:
+                        continue
+                    staged = (aligned and ti < n_ht and si < n_hs and yh < hh
+                              and xh + 3 < wh)
+                    assert not staged or (yr[ti, yh - _T * ti + 4] == yh
+                                          and (xc[si, (xh - _T * si) // 4 + 1] == xh + np.arange(4)).all())
+                    luma8[:, r : r + 2, c : c + 8] = l8[:, r + 8 : r + 10, c : c + 8]
+                    n8[r : r + 2, c : c + 8] += 1
+    assert (n8 == 1).all()
+
+    _, strip_min = _stencil_model(lum, (hh, wh), taps)
+    return luma8, half_p, strip_min.min(-1)
+
+
+@pytest.mark.parametrize("shape", _DECIMATE_SHAPES)
+@pytest.mark.parametrize("mode", ["u8", "u16", "rgb"])
+def test_decimate_model_equals_plain(mode, shape):
+    """On frames of the kind the smoke holds the kernel to on the card."""
+    import chip_smoke
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate_plain
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_kernel
+
+    assert set(_DECIMATE_SHAPES[:2]) <= set(chip_smoke.FRONT_SHAPES)
+    h, w = shape
+    img = chip_smoke.synthetic_raw_frames(mode, h, w, 2, seed=h + w)
+    raw, _, _, ch, u16 = pad_raw(torch.from_numpy(img))
+    raw_np = raw.view(torch.int16).numpy().view(np.uint16) if u16 else raw.numpy()
+    want = front_kernel_decimate_plain(raw, 1.5, shape, ch, u16)
+    for aligned in (True, False) if shape == _DECIMATE_SHAPES[0] else (True,):
+        got = _decimate_model(raw_np, ch, u16, shape, gaussian_kernel(1.5), aligned)
+        for g, p in zip(got, want):
+            np.testing.assert_array_equal(g, p.numpy())
+
+
 @pytest.mark.parametrize("prefilter", [True, False])
 @pytest.mark.parametrize("key", ["iphone", "euroc_u16"])
 def test_cluster_luma_f32_matches_jax(data_dir, key, prefilter):

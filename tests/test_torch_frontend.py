@@ -194,7 +194,14 @@ def _stage_model(raw, channels, u16, w, aligned):
         assert vec[interior].all()
     px = raw[:, pr[:, None, :, None, None, None],
              (cc[None, :, None] * channels)[..., None] + np.arange(channels)]
-    px = px.astype(np.int64)                     # (B, T, S, 72, 18, 4, C)
+    lf, l8 = _luma_model(px, channels, u16)      # (B, T, S, 72, 18, 4)
+    return lf.reshape(b, n_t, n_s, 72, 72), l8
+
+
+def _luma_model(px, channels, u16):
+    """(f32 luma, luma8) of raw pixels px (..., C) as the kernels convert
+    them."""
+    px = px.astype(np.int64)
     if channels == 3:
         r, g, bl = px[..., 0], px[..., 1], px[..., 2]
         cr, cg, cb = (np.float64(np.float32(v / 255.0)) for v in (0.2126, 0.7152, 0.0722))
@@ -209,7 +216,7 @@ def _stage_model(raw, channels, u16, w, aligned):
     else:
         lf = _u8_lut()[px[..., 0]]
         l8 = px[..., 0]
-    return lf.reshape(b, n_t, n_s, 72, 72), l8.astype(np.uint8)
+    return lf, l8.astype(np.uint8)
 
 
 def _hessian_model(up, mid, dn):
@@ -222,13 +229,13 @@ def _hessian_model(up, mid, dn):
     return lxx * lyy - lxy * lxy
 
 
-def _front_tile_model(raw, channels, u16, true_shape, taps, aligned=True):
-    """(luma8 (B, Hp, Wp), blur (B, Hp, Wp), tile_min (B, Hp/64)) as the
-    kernel's blocks compute them."""
+def _stencil_model(lum, true_shape, taps):
+    """The kernels' passes on staged tiles lum (B, T, S, 72, 72) of an
+    image of true shape (h, w): (blurred tiles (B, T, S, 66, 68), entry
+    (y, x) the blur at image pixel (64 ti - 1 + y, 64 si - 1 + x); tile
+    minima of the response (B, T, S), its border zeroed)."""
     h, w = true_shape
-    lum, l8q = _stage_model(raw, channels, u16, w, aligned)
-    b, n_t, n_s = lum.shape[:3]
-    hp, wp = n_t * _T, n_s * _T
+    n_t, n_s = lum.shape[1:3]
     taps = [np.float32(t) for t in taps]
 
     # horizontal pass: group g = outputs 16g .. 16g + 15 from the window of
@@ -256,8 +263,7 @@ def _front_tile_model(raw, channels, u16, true_shape, taps, aligned=True):
             blurred[..., r, :] = acc
 
     # Hessian: thread (run, quad) walks rows 4 run .. 4 run + 3 with the
-    # rows above and below; blurred entry (y, x) is image pixel
-    # (64 ti - 1 + y, 64 si - 1 + x)
+    # rows above and below
     rr = _T * np.arange(n_t)[:, None, None] + np.arange(_T)[None, None, :]   # (T, 1, 64)
     cc = _T * np.arange(n_s)[None, :, None] + np.arange(_T)[None, None, :]   # (1, S, 64)
     col_in = (cc != 0) & (cc < w - 1)
@@ -267,17 +273,24 @@ def _front_tile_model(raw, channels, u16, true_shape, taps, aligned=True):
     inside = ((rr > 0) & (rr < h - 1)).all(-1) & col_in.all(-1)          # (T, S)
     assert (inside | border).all()
     resp = np.empty(lum.shape[:3] + (_T, _T), np.float32)
-    blur = np.empty((b, hp, wp), np.float32)
     for run in range(_T // _RRUN):
         for y in range(run * _RRUN, (run + 1) * _RRUN):
             up, mid, dn = (blurred[..., y + d, :66] for d in range(3))
             v = _hessian_model(up, mid, dn)
             row_in = (rr[..., y] > 0) & (rr[..., y] < h - 1)
             resp[..., y, :] = np.where(row_in[:, :, None] & col_in[:, :, :], v, 0)[None]
-            blk = mid[..., 1:65]                                    # (B, T, S, 64)
-            for ti in range(n_t):
-                blur[:, ti * _T + y] = blk[:, ti].reshape(b, wp)
-    strip_min = resp.min(axis=(-2, -1))                              # (B, T, S)
+    return blurred, resp.min(axis=(-2, -1))
+
+
+def _front_tile_model(raw, channels, u16, true_shape, taps, aligned=True):
+    """(luma8 (B, Hp, Wp), blur (B, Hp, Wp), tile_min (B, Hp/64)) as the
+    kernel's blocks compute them."""
+    lum, l8q = _stage_model(raw, channels, u16, true_shape[1], aligned)
+    b, n_t, n_s = lum.shape[:3]
+    hp, wp = n_t * _T, n_s * _T
+    blurred, strip_min = _stencil_model(lum, true_shape, taps)
+    # the blurred tile's own pixels, 16-byte rows from the Hessian pass
+    blur = blurred[..., 1:65, 1:65].transpose(0, 1, 3, 2, 4).reshape(b, hp, wp)
 
     # luma8: quads 1..16 of staged rows 4..67, one 4-byte store each
     own = l8q[:, :, :, 4:68, 1:17].reshape(b, n_t, n_s, _T, _T)
@@ -317,3 +330,59 @@ def test_u8_luma_table_is_ieee_div():
 
     want = ieee_div(torch.arange(256, dtype=torch.float32), 255.0).numpy()
     np.testing.assert_array_equal(_u8_lut().view(np.int32), want.view(np.int32))
+
+
+def _fma32(a, b, c):
+    """Correctly rounded f32 fma(a, b, c) of f32 arrays: the product is
+    exact in f64, TwoSum gives the sum's f64 rounding s and its exact
+    error, and the f32 rounding of s moves one step where s + err lies past
+    half a step (ties to even)."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    f = s.astype(np.float32)
+    d = (s - f.astype(np.float64)) + err
+    up, dn = np.nextafter(f, np.float32(np.inf)), np.nextafter(f, np.float32(-np.inf))
+    hu, hd = (up.astype(np.float64) - f) / 2, (f.astype(np.float64) - dn) / 2
+    odd = (f.view(np.int32) & 1) == 1
+    f = np.where((d > hu) | ((d == hu) & odd), up, f)
+    return np.where((d < -hd) | ((d == -hd) & odd), dn, f)
+
+
+def test_u16_luma_helpers_are_exact():
+    """The kernels' u16 helpers (csrc/frontend.cu) on every u16 value:
+    gray16_f32, a product with the f32 reciprocal and one FMA correction,
+    equals the IEEE divide x / 65535 of luma_f32 and ops/gray.py; gray16_u8,
+    an integer quotient, equals luma_u8's floor of the f32 quotient."""
+    from aprilgrid_tpu_torch.ops.gray import ieee_div
+
+    x = np.arange(65536).astype(np.float32)
+    inv = np.float32(1.0 / 65535.0)
+    q = x * inv
+    got = _fma32(_fma32(-q, np.float32(65535.0), x), inv, q)
+    want = ieee_div(torch.from_numpy(x), 65535.0).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (q != want).sum() > 0          # the plain product alone is not exact
+    xi = np.arange(65536, dtype=np.int64)
+    l8 = np.floor((x * np.float32(255.0) + np.float32(32767.0)) / np.float32(65535.0))
+    np.testing.assert_array_equal((xi * 255 + 32767) // 65535, l8.astype(np.int64))
+
+
+def test_fma32_model_rounds_once():
+    """_fma32 against exact rational arithmetic on products cancelled to a
+    few ulps, where a second rounding would show."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal(400).astype(np.float32)
+    b = rng.standard_normal(400).astype(np.float32)
+    c = (-(a.astype(np.float64) * b)).astype(np.float32)
+    c = c * np.float32(1.0) + np.float32(1e-7) * rng.standard_normal(400).astype(np.float32)
+    got = _fma32(a, b, c)
+    for ai, bi, ci, g in zip(a, b, c, got):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        cands = [g, np.nextafter(g, np.float32(np.inf)), np.nextafter(g, np.float32(-np.inf))]
+        dist = [abs(Fraction(float(v)) - exact) for v in cands]
+        assert dist[0] <= min(dist[1:])

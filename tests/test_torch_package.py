@@ -201,3 +201,22 @@ def test_parse_ptxas_report():
         {"kernel": "blur_mask_kernel", "registers": 43, "stack_bytes": 0,
          "spill_store_bytes": 0, "spill_load_bytes": 0, "smem_bytes": 39752},
     ]
+
+
+def test_parse_ptxas_names_template_instances():
+    """A kernel template's instances (one per raw mode) are told apart by
+    their integer argument."""
+    from aprilgrid_tpu_torch.kernels._lib import parse_ptxas
+
+    text = "".join(
+        "ptxas info    : Compiling entry function "
+        f"'_ZN60_GLOBAL__N__3b2a_11_frontend_cu_c0d121front_decimate_kernelILi{n}EEEvPKv' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {40 + n} registers, used 1 barriers, 44832 bytes smem\n"
+        for n in (0, 2)
+    )
+    assert [(r["kernel"], r["registers"], r["smem_bytes"]) for r in parse_ptxas(text)] == [
+        ("front_decimate_kernel<0>", 40, 44832), ("front_decimate_kernel<2>", 42, 44832),
+    ]
