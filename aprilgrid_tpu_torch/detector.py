@@ -28,7 +28,7 @@ import torch
 from . import native
 from .config import CONSTANTS, DEFAULT_CAPACITIES, Capacities, DetectorParams, PipelineConstants
 from .families import FamilySpec, TagFamily, get_family
-from .ops.decode import decode_quads_batch
+from .kernels.decode import decode_packed
 from .pipeline import (
     _turbo_nms_env,
     frontend_packed,
@@ -265,34 +265,25 @@ class TagDetector:
             changed[np.unique(fi)] = True
 
     def _decode(self, packed, luma8, quads: np.ndarray, counts: np.ndarray, hw):
-        """Decode the searched quads of a chunk on the device; returns
-        (B, dc, 10) f32 rows [id, valid, corners x8]."""
-        dev = packed.device
-        b, dc = quads.shape[:2]
-        q = torch.from_numpy(quads).to(dev, torch.int64).clamp(min=0)
-        qv = torch.arange(dc, device=dev)[None, :] < torch.from_numpy(
-            counts
-        ).to(dev)[:, None]
-        pos = packed[..., 0:2]  # (B, N+1, 2)
-        qp = torch.gather(
-            pos, 1, q.reshape(b, dc * 4, 1).expand(b, dc * 4, 2)
-        ).reshape(b, dc, 4, 2)
-        d = decode_quads_batch(
-            luma8, qp, qv, self.spec,
-            self.consts.decode_margin,
-            self.consts.valid_brightness_threshold,
-            self.consts.max_invalid_bit,
-            self.consts.min_contrast,
-            true_shape=hw,
+        """Decode the searched quads of a chunk on the device, one upload
+        of quads | count (as aprilgrid_tpu/detector.py:555-559 packs them)
+        and one ``decode_packed`` call; returns (B, dc, 10) f32 rows [id,
+        valid, corners x8]."""
+        c = self.consts
+        qarr = torch.from_numpy(pack_qarr(quads, counts)).to(packed.device)
+        return decode_packed(
+            packed, luma8, qarr, hw, quads.shape[1],
+            self.spec, c.decode_margin, c.valid_brightness_threshold,
+            c.max_invalid_bit, c.min_contrast,
         )
-        return torch.cat(
-            [
-                d.ids.to(torch.float32)[..., None],
-                d.valid.to(torch.float32)[..., None],
-                d.corners.reshape(b, dc, 8),
-            ],
-            dim=-1,
-        )
+
+
+def pack_qarr(quads: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The search's (B, dc, 4) quads and (B,) counts as one (B, dc*4 + 1)
+    int32 array, quads | count, the decode's one upload."""
+    return np.concatenate(
+        [quads.reshape(len(counts), -1), counts[:, None]], axis=1
+    ).astype(np.int32)
 
 
 def _as_tensor(imgs) -> torch.Tensor:

@@ -4,10 +4,12 @@ The reference enumerates five families and embeds their code tables
 (reference: src/tag_families.rs:6-28 for the enum/FromStr,
 src/detector.rs:364-406 for the per-family (edge, border, hamming)
 parameters). The tables live in ``data/tag_families.npz``; each family
-holds numpy arrays and hands out tensors on request (``code_bits_tensor``):
+holds numpy arrays and hands out tensors on request (``code_bits_tensor``,
+``code_words_tensor``):
 
 * the code table unpacked to a (num_codes, edge*edge) bit matrix, the
-  layout the hamming table scan takes (kernels/decode.py);
+  layout the hamming table scan takes (kernels/decode.py), and packed into
+  one word per code, the layout of the decode kernel's table;
 * the 90-degree bit-rotation permutation (reference computes it with a
   const-fn bit loop at src/detector.rs:124-140; here it is a gather).
 """
@@ -108,10 +110,23 @@ class FamilySpec:
         """(N, edge*edge) f32 0/1 code table on ``device``."""
         return _code_bits_on(self, str(torch.device(device)))
 
+    def code_words_tensor(self, device) -> torch.Tensor:
+        """(N,) int64 code table on ``device``: ``code_bits`` packed LSB
+        first, one word per code (the decode kernel's table)."""
+        return _code_words_on(self, str(torch.device(device)))
+
 
 @functools.lru_cache(maxsize=None)
 def _code_bits_on(spec: FamilySpec, device: str) -> torch.Tensor:
     return torch.from_numpy(spec.code_bits.astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _code_words_on(spec: FamilySpec, device: str) -> torch.Tensor:
+    bits = spec.code_bits.astype(np.uint64)
+    shift = np.arange(bits.shape[1], dtype=np.uint64)
+    words = (bits << shift).sum(axis=1, dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(words).to(device)
 
 
 @functools.lru_cache(maxsize=None)

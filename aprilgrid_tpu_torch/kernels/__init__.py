@@ -20,6 +20,7 @@ LAUNCHES = {
     "gray_kernel": 0,
     "cluster_rochade": 0,                # the cluster kernel fed a blur plane
     "front_kernel[emit_blur]": 0,        # the front kernel writing its blur plane
+    "decode_packed": 0,                  # a pass's decode, the scan included
 }
 
 

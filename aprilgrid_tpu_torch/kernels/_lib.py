@@ -147,6 +147,10 @@ def lib() -> ctypes.CDLL:
     ]
     handle.ag_hamming_scan.restype = i
     handle.ag_hamming_scan.argtypes = [p, i, i, p, i, p, p, p]
+    handle.ag_decode_packed.restype = i
+    handle.ag_decode_packed.argtypes = [
+        p, i, p, i, i, p, i, i, i, i, p, p, p, i, p, i, i, i, i, i, p, p,
+    ]
     return handle
 
 

@@ -14,8 +14,12 @@ Phases (a failing phase raises, so the script exits non-zero):
    the CUDA library built from source, build seconds;
 2. kernels vs plain versions on CUDA tensors at main-path shapes
    (every golden image at batch 32, the end-to-end chunk: EuRoC u8 gray,
-   TUM_VI u16 gray, iphone and two_boards RGB; the hamming scan at 32
-   frames x 96 quads x 4 rotations) with their times; the turbo path's
+   TUM_VI u16 gray, iphone and two_boards RGB; the standalone hamming
+   scan at 32 frames x 96 quads x 4 rotations; the decode of a pass,
+   ``decode_packed``, bit for bit on every pass the facade decodes on the
+   four images at batch 32 and on synthetic slot sets of three families:
+   padding, count 0 and count = dcap, corners outside the frame and NaN,
+   a code planted under each rotation, dcap 24 and 192) with their times; the turbo path's
    kernels (decimating front kernel, the cluster kernel's f32-luma mode,
    NMS extraction, sparse refine) on iphone and two_boards at batch 32
    and on EuRoC and TUM_VI at batch 8, the NMS tie-break on a plane
@@ -39,10 +43,14 @@ Phases (a failing phase raises, so the script exits non-zero):
    ``nms_extract_raw`` and of ``sparse_refine_raw`` on two_boards
    (torch.profiler) with what ptxas reported for their kernels, and for
    the last two the PyTorch operations their wrappers enqueue and the
-   spread of the whole call's time;
+   spread of the whole call's time; the decode of each pass on two_boards
+   (``phase_decode_split``: host ms, one upload, one kernel and one
+   download asserted, the device's idle gap before the kernel) with
+   probes of ``decode_packed`` and ``hamming_scan``;
 3. end to end: ``detect_batch`` at batch 32 on EuRoC, TUM_VI, iphone and
    two_boards — golden tag counts on every frame, ID sets and corners
-   against the port's own CPU run, frames/s timed with CUDA events; then
+   against the port's own CPU run, frames/s timed with CUDA events, one
+   ``decode_packed`` launch per pass with quads and no ``hamming_scan``; then
    the turbo mode on iphone and two_boards for the NMS and the drain
    variant, held the same way, and ``decimate="auto"`` on EuRoC against
    the exact result; the front-end's share of a chunk's time;
@@ -69,13 +77,15 @@ the turbo path's kernel checks, the NMS and refine synthetic cases and their
 per-launch split, for work on those two kernels; ``--front-only`` runs the
 front kernel's synthetic check and ``phase_front_split``, for work on the
 front kernel; ``--decimate-only`` runs the decimating front kernel's
-synthetic check, ``phase_decimate_split`` and ``phase_hamming_split``, for
-work on those two kernels).
+synthetic check and ``phase_decimate_split``, for work on that kernel;
+``--decode-only`` runs the decode kernels' checks and
+``phase_decode_split``, for work on the decode).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -213,13 +223,11 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
-    from aprilgrid_tpu_torch.families import get_family
     from aprilgrid_tpu_torch.kernels.cluster import (
         cluster_rochade_raw,
         cluster_rochade_raw_plain,
         sort_candidates,
     )
-    from aprilgrid_tpu_torch.kernels.decode import hamming_scan, hamming_scan_plain
     from aprilgrid_tpu_torch.kernels.frontend import (
         front_kernel,
         front_kernel_plain,
@@ -304,30 +312,7 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     front_synthetic_check()
     front_decimate_synthetic_check()
 
-    spec = get_family("t36h11")
-    codes = spec.code_bits_tensor(dev)
-    rng = np.random.default_rng(3)
-    rows = rng.integers(0, 2, (32, 4 * 96, codes.shape[1])).astype(np.float32)
-    cb = spec.code_bits.astype(np.float32)
-    rows[0, 0] = cb[17]          # exact hits, and ties broken by index
-    rows[1, 1] = cb[0]
-    rows[2, 2:6] = cb[5]
-    rots = torch.from_numpy(rows).to(dev)
-    m, i = hamming_scan(rots, codes)
-    pm, pi = hamming_scan_plain(rots, codes)
-    torch.cuda.synchronize()
-    if not (torch.equal(m, pm) and torch.equal(i, pi)):
-        raise AssertionError("hamming_scan differs from its plain version")
-    print("kernels hamming_scan 32x384x36 vs t36h11: exact", flush=True)
-    n_rows, n_codes, nb = rots.shape[0] * rots.shape[1], codes.shape[0], codes.shape[1]
-    rec["hamming"] = dict(
-        err=0.0, ms=_ms(lambda: hamming_scan(rots, codes), 50),
-        plain_ms=_ms(lambda: hamming_scan_plain(rots, codes), 5),
-        # 4-byte reads of rows and table, 8-byte writes; XOR + popcount +
-        # compare per (row, code), counted at the f32 rate
-        bound=_bound_ms(4.0 * (n_rows + n_codes) * nb + 8.0 * n_rows,
-                        3.0 * n_rows * n_codes),
-    )
+    rec.update(decode_checks(batch))
     timed = [(f"{n}.{k}", r) for n in names
              for k, r in rec[n].items()] + [("hamming", rec["hamming"])]
     _print_times(card, timed)
@@ -1209,26 +1194,258 @@ def phase_decimate_split(card: str, batch: int) -> dict:
     return split
 
 
-def phase_hamming_split(card: str, batch: int) -> dict:
-    """``hamming_scan`` on the exact path, in one torch.profiler session:
-    one ``detect_batch`` of two_boards at ``batch`` — the scan kernel's
-    launches, device ms each, and the device's idle gap before each launch
-    (the end of the previous device operation to the scan's start) — then,
-    on the rows of the smoke's scan (``batch`` frames x 384 rows vs t36h11),
-    10 launches each of the full scan, of one row (the table packed by one
-    block plus one thread's walk of every code), of one code (every row
-    packed, one compare each) and of one row and one code (the launch
-    floor), their mean device ms."""
+# per bit of a decoded slot: the two affine sums (8), the two roundings
+# and clamps (10), the bounds (2), min, max, threshold and invalid test (4)
+DECODE_BIT_OPS = 24.0
+# per slot: the affine's 6 x 8 products and sums, the corner gate
+DECODE_SLOT_OPS = 96.0 + 24.0
+
+
+def decode_slot_sets(family: str = "t36h11", seed: int = 0) -> list:
+    """Inputs of ``decode_packed`` that no photograph gives, as numpy
+    arrays ``(name, packed, luma8, qarr, (h, w), dcap)``: a 150 x 190 frame
+    in a 160 x 256 noise plane, 120 random saddles a frame (some beyond the
+    true frame inside the padding, every seventh on a rounding tie x.5) and
+    four squares a frame painted with a code of the family under each of
+    the four rotations. At dcap 24: frame 0 holds the four squares and 8
+    random quads, the rest -1 padding; frame 1 is full (count = dcap);
+    frame 2 has count 0 over real quads; frame 3 has corners outside the
+    frame (negative, in the padding, 1e6 away, NaN). At dcap 192: random
+    quads, counts 150 and 192. Noise bits tie in the scan all the time."""
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.detector import pack_qarr
+    from aprilgrid_tpu_torch.families import get_family
+    from aprilgrid_tpu_torch.ops.decode import _rot_perms, decode_positions_px
+
+    spec = get_family(family)
+    nb = spec.edge * spec.edge
+    src = nb - 1 - _rot_perms(spec.edge)      # position feeding bit i of rotation r
+    rng = np.random.default_rng(seed)
+    h, w, hp, wp, n = 150, 190, 160, 256, 120
+
+    def frames(bsz):
+        luma8 = rng.integers(0, 256, (bsz, hp, wp)).astype(np.uint8)
+        pts = rng.uniform((-3.0, -3.0), (w + 6.0, h + 6.0), (bsz, n, 2))
+        pts[:, ::7] = np.floor(pts[:, ::7]) + 0.5
+        packed = np.zeros((bsz, n + 1, 4), np.float32)
+        packed[:, :n, :2] = pts
+        packed[:, :n, 3] = 1.0
+        packed[:, n, :3] = (0.0, 0.0, 5.0)           # a counters row
+        return packed, luma8
+
+    def random_quads(count):
+        return rng.integers(0, n - 16, (count, 4))
+
+    packed, luma8 = frames(4)
+    squares = np.zeros((4, 4, 4), np.int64)          # frame, rotation, corner row
+    for f in range(4):
+        for r, (x0, y0) in enumerate(((10, 10), (110, 10), (10, 90), (110, 90))):
+            side = 40.0
+            corners = np.array([(x0, y0), (x0, y0 + side), (x0 + side, y0 + side),
+                                (x0 + side, y0)], np.float32) + rng.uniform(0, 1, 2)
+            code = int(spec.codes[rng.integers(spec.num_codes)])
+            msb = np.zeros(nb, np.int64)
+            msb[src[r]] = (code >> np.arange(nb)) & 1
+            pos = decode_positions_px(corners, spec, CONSTANTS.decode_margin, w, h)
+            at = np.copysign(np.floor(np.abs(pos) + 0.5), pos).astype(np.int64)
+            luma8[f, at[:, 1], at[:, 0]] = 255 * msb
+            rows = n - 16 + 4 * r + np.arange(4)
+            packed[f, rows, :2] = corners
+            squares[f, r] = rows
+    dcap = 24
+    quads = np.full((4, dcap, 4), -1, np.int64)
+    counts = np.array([12, dcap, 0, 10])
+    quads[0, :4] = squares[0]
+    quads[0, 4:12] = random_quads(8)
+    quads[1, :4] = squares[1]
+    quads[1, 4:] = random_quads(dcap - 4)
+    quads[2, :4] = squares[2]
+    quads[2, 4:16] = random_quads(12)
+    quads[3, :10] = random_quads(10)
+    quads[3, 4:8] = squares[3]
+    far = np.array([(-3.2, 7.0), (w + 0.4, 20.0), (1e6, 5.0), (30.0, -1e6),
+                    (np.nan, 40.0), (50.0, hp - 1.0), (wp - 1.0, h - 0.5)], np.float32)
+    packed[3, :len(far), :2] = far
+    quads[3, :4] = [[0, 10, 11, 12], [1, 13, 14, 15], [2, 3, 16, 17], [4, 5, 6, 18]]
+    sets = [("dcap24", packed, luma8, quads, counts, dcap)]
+    packed, luma8 = frames(2)
+    sets.append(("dcap192", packed, luma8, random_quads(2 * 192).reshape(2, 192, 4),
+                 np.array([150, 192]), 192))
+    return [(f"{family} {name}", packed, luma8, pack_qarr(quads, counts), (h, w), dc)
+            for name, packed, luma8, quads, counts, dc in sets]
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit (NaN and -0 included) equality of two f32 tensors."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def decode_checks(batch: int) -> dict:
+    """The decode kernels against their plain versions on CUDA tensors:
+    ``hamming_scan`` on ``batch`` frames x 384 random rows vs t36h11 with
+    planted exact hits and ties; ``decode_packed`` bit for bit on the
+    quads | count of every pass the facade decodes on the four golden
+    images at ``batch`` (its own search on the card) and on
+    ``decode_slot_sets`` of t36h11, t16h5 and t25h9; returns their
+    records (error, times, bound; the decode's at two_boards's first
+    pass)."""
+    import torch
 
     from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.detector import pack_qarr
     from aprilgrid_tpu_torch.families import get_family
-    from aprilgrid_tpu_torch.kernels.decode import hamming_scan
+    from aprilgrid_tpu_torch.kernels.decode import (
+        decode_packed,
+        decode_packed_plain,
+        hamming_scan,
+        hamming_scan_plain,
+    )
 
-    img = read_png(DATA / "two_boards.png")
+    dev = torch.device("cuda")
+    spec = get_family("t36h11")
+    codes = spec.code_bits_tensor(dev)
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 2, (batch, 4 * 96, codes.shape[1])).astype(np.float32)
+    cb = spec.code_bits.astype(np.float32)
+    rows[0, 0] = cb[17]          # exact hits, and ties broken by index
+    rows[1, 1] = cb[0]
+    rows[2, 2:6] = cb[5]
+    rots = torch.from_numpy(rows).to(dev)
+    m, i = hamming_scan(rots, codes)
+    pm, pi = hamming_scan_plain(rots, codes)
+    torch.cuda.synchronize()
+    if not (torch.equal(m, pm) and torch.equal(i, pi)):
+        raise AssertionError("hamming_scan differs from its plain version")
+    print(f"kernels hamming_scan {batch}x384x36 vs t36h11: exact", flush=True)
+    n_rows, n_codes, nb = rots.shape[0] * rots.shape[1], codes.shape[0], codes.shape[1]
+    rec = {"hamming": dict(
+        err=0.0, ms=_ms(lambda: hamming_scan(rots, codes), 50),
+        plain_ms=_ms(lambda: hamming_scan_plain(rots, codes), 5),
+        # 4-byte reads of rows and table, 8-byte writes; XOR + popcount +
+        # compare per (row, code), counted at the f32 rate
+        bound=_bound_ms(4.0 * (n_rows + n_codes) * nb + 8.0 * n_rows,
+                        3.0 * n_rows * n_codes),
+    )}
+
+    c = CONSTANTS
+    gates = (c.decode_margin, c.valid_brightness_threshold, c.max_invalid_bit,
+             c.min_contrast)
     det = TagDetector("t36h11", device="cuda")
+    passes = []
+
+    def grab(packed, luma8, quads, counts, hw, _orig=det._decode):
+        passes.append((packed, luma8, torch.from_numpy(pack_qarr(quads, counts)).to(dev),
+                       hw, quads.shape[1]))
+        return _orig(packed, luma8, quads, counts, hw)
+
+    det._decode = grab
+    said = []
+    for name in GOLDEN:
+        first = len(passes)
+        det.detect_batch(np.stack([read_png(DATA / f"{name}.png")] * batch))
+        for packed, luma8, qarr, hw, dc in passes[first:]:
+            got = decode_packed(packed, luma8, qarr, hw, dc, spec, *gates)
+            want = decode_packed_plain(packed, luma8, qarr, hw, dc, spec, *gates)
+            torch.cuda.synchronize()
+            if not _bits_equal(got, want):
+                raise AssertionError(f"decode_packed {name} (dcap {dc}): differs from "
+                                     "its plain version")
+            said.append(f"{name} dcap {dc} {int(got[..., 1].sum())} tags")
+        if name == "two_boards":
+            args = passes[first] + (spec, *gates)
+    print(f"kernels decode_packed on {len(passes)} passes of the facade at b{batch}: "
+          f"bit-equal to the plain version; " + ", ".join(said), flush=True)
+    said = []
+    for family in ("t36h11", "t16h5", "t25h9"):
+        fspec = get_family(family)
+        for name, packed, luma8, qarr, hw, dc in decode_slot_sets(family):
+            t = [torch.from_numpy(a).to(dev) for a in (packed, luma8, qarr)]
+            got = decode_packed(*t, hw, dc, fspec, *gates)
+            want = decode_packed_plain(*t, hw, dc, fspec, *gates)
+            torch.cuda.synchronize()
+            if not _bits_equal(got, want):
+                raise AssertionError(f"decode_packed synthetic {name}: differs from its "
+                                     "plain version")
+            said.append(f"{name} {int(got[..., 1].sum())} tags")
+    print("kernels decode_packed synthetic slot sets: bit-equal to the plain version; "
+          + ", ".join(said), flush=True)
+
+    packed, luma8, qarr, _, dc = args[:5]
+    slots = qarr.shape[0] * dc
+    rec["decode"] = dict(
+        err=0.0, ms=_ms(lambda: decode_packed(*args), 50),
+        plain_ms=_ms(lambda: decode_packed_plain(*args), 5),
+        # qarr, the four gathered corners (8 B each), the sampled bytes and
+        # the table read once, the rows written once; 3 operations per
+        # (slot, rotation, code) and the per-bit and per-slot work
+        bound=_bound_ms(qarr.numel() * 4 + slots * (4 * 8 + nb + 40) + n_codes * 8,
+                        slots * (12.0 * n_codes + DECODE_BIT_OPS * nb + DECODE_SLOT_OPS)),
+        slots=slots,
+    )
+    return rec
+
+
+def _device_events(prof, annotation: str) -> list:
+    """The device operations of a torch.profiler session, by start (the
+    device track's copy of the ``annotation`` ranges left out)."""
+    return sorted((ev for ev in prof.events()
+                   if "CUDA" in str(getattr(ev, "device_type", ""))
+                   and ev.name != annotation
+                   and not getattr(ev, "is_user_annotation", False)),
+                  key=lambda ev: ev.time_range.start)
+
+
+def phase_decode_split(card: str, batch: int) -> dict:
+    """The decode of each board pass (the facade's ``_decode``, its
+    download included) on two_boards at ``batch``, exact and turbo NMS:
+    per call the host wall ms (host clock, a run without the profiler),
+    then in one torch.profiler session the device kernels, memcpys and
+    memsets it issues, the device's busy ms inside it and its idle gap
+    before the scan (the end of the previous device operation to the
+    start of the kernel that scans the code table). Then 10 launches
+    each, their mean device ms: of ``decode_packed`` on the exact path's
+    first pass in full, with a table of one code, on one slot and on one
+    slot with one code (the launch floor); of ``hamming_scan`` on the
+    rows of the smoke's scan (``batch`` frames x 384 rows vs t36h11) in
+    full, of one row, of one code and of one row and one code. What ptxas
+    reported for the kernels of ``decode.cu``."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.detector import pack_qarr
+    from aprilgrid_tpu_torch.families import get_family
+    from aprilgrid_tpu_torch.kernels.decode import decode_packed, hamming_scan
+
+    res = _print_ptxas("decode.cu")
+    img = read_png(DATA / "two_boards.png")
     frames = np.stack([img] * batch)
+    os.environ["AG_TURBO_NMS"] = "1"
+    dets = {"exact": TagDetector("t36h11", device="cuda"),
+            "turbo-nms": TagDetector("t36h11", device="cuda", decimate=True)}
+    walls: dict = {}
+    first: dict = {}
+    for label, det in dets.items():
+        def timed(*a, _orig=det._decode, _label=label):
+            first.setdefault(_label, a)                # the path's first pass
+            t0 = time.perf_counter()
+            with record_function("ag_decode"):
+                out = _orig(*a).cpu()
+            walls.setdefault(_label, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        det._decode = timed
+        det.detect_batch(frames)                       # warm-up
+    walls.clear()
+    for det in dets.values():
+        det.detect_batch(frames)
+    host_ms = {k: list(v) for k, v in walls.items()}
+    walls.clear()
     codes = get_family("t36h11").code_bits_tensor(torch.device("cuda"))
     rng = np.random.default_rng(3)
     rots = torch.from_numpy(rng.integers(0, 2, (batch, 4 * 96, codes.shape[1]))
@@ -1238,45 +1455,110 @@ def phase_hamming_split(card: str, batch: int) -> dict:
         "one_code": (rots, codes[:1].contiguous()),
         "floor": (rots[:1, :1].contiguous(), codes[:1].contiguous()),
     }
-    det.detect_batch(frames)
+    spec = get_family("t36h11")
+    one = dataclasses.replace(spec, codes=spec.codes[:1], code_bits=spec.code_bits[:1])
+    packed, luma8, quads, counts, hw = first["exact"]
+    dc = quads.shape[1]
+    qarr = torch.from_numpy(pack_qarr(quads, counts)).cuda()
+    q1 = torch.cat([qarr[:1, :4], torch.ones_like(qarr[:1, :1])], 1)
+    c = CONSTANTS
+    gates = (c.decode_margin, c.valid_brightness_threshold, c.max_invalid_bit, c.min_contrast)
+    dshapes = {
+        "full": (packed, luma8, qarr, hw, dc, spec),
+        "one_code": (packed, luma8, qarr, hw, dc, one),
+        "one_slot": (packed[:1], luma8[:1], q1, hw, 1, spec),
+        "floor": (packed[:1], luma8[:1], q1, hw, 1, one),
+    }
     for a in shapes.values():
         hamming_scan(*a)
+    for a in dshapes.values():
+        decode_packed(*a, *gates)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        det.detect_batch(frames)
+        for det in dets.values():
+            det.detect_batch(frames)
         torch.cuda.synchronize()
         for a in shapes.values():
             for _ in range(10):
                 hamming_scan(*a)
             torch.cuda.synchronize()
-    dev = sorted((ev for ev in prof.events()
-                  if "CUDA" in str(getattr(ev, "device_type", ""))),
-                 key=lambda ev: ev.time_range.start)
-    scans = [i for i, ev in enumerate(dev) if "hamming_scan_kernel" in ev.name]
-    n_path = len(scans) - 10 * len(shapes)
-    if n_path <= 0:
-        raise AssertionError(f"hamming split: {len(scans)} scan launches traced")
-    path = dev[: scans[n_path]]                    # detect_batch's device work
-    gaps, prev_end = [], path[0].time_range.start
-    for ev in path:
-        if "hamming_scan_kernel" in ev.name:
-            gaps.append(max(ev.time_range.start - prev_end, 0) / 1e3)
-        prev_end = max(prev_end, ev.time_range.end)
-    probe = [dev[i].time_range.elapsed_us() / 1e3 for i in scans[n_path:]]
+        for a in dshapes.values():
+            for _ in range(10):
+                decode_packed(*a, *gates)
+            torch.cuda.synchronize()
+    del os.environ["AG_TURBO_NMS"]
+    dev = _device_events(prof, "ag_decode")
+    wins = sorted((ev.time_range for ev in prof.events() if ev.name == "ag_decode"
+                   and "CPU" in str(getattr(ev, "device_type", ""))),
+                  key=lambda tr: tr.start)
+    labels = [k for k, v in walls.items() for _ in v]
+    if [k for k, v in host_ms.items() for _ in v] != labels or len(wins) != len(labels):
+        raise AssertionError(f"decode split: {len(wins)} traced calls, {host_ms}, {walls}")
+    # a call's runtime calls (launches, copies) are those in its range on
+    # the host's clock; its device operations those whose runtime call (the
+    # same correlation id) lies in that range, as the device clock is
+    # aligned to the host's only so far; an operation without one counts
+    # where it starts, within 0.1 ms of the range (the host search keeps
+    # other device work milliseconds away)
+    api = [ev for ev in prof.events() if ev.name.startswith(("cudaLaunchKernel",
+                                                              "cuLaunchKernel",
+                                                              "cudaMemcpy", "cudaMemset"))]
+    runtime = {ev.id: ev.time_range.start for ev in api}
+    launched = [runtime.get(ev.id) for ev in dev]
+
+    def within(i, win):
+        if launched[i] is not None:
+            return win.start <= launched[i] <= win.end
+        return win.start - 100 <= dev[i].time_range.start <= win.end + 100
+
+    calls = []
+    for label, ms, win in zip(labels, [m for v in host_ms.values() for m in v], wins):
+        inside = [i for i in range(len(dev)) if within(i, win)]
+        names = [dev[i].name for i in inside]
+        issued = [ev.name for ev in api if win.start <= ev.time_range.start <= win.end]
+        scan = [i for i in inside if re.search(r"hamming_scan_kernel|decode_packed_kernel",
+                                                dev[i].name)]
+        if not scan:
+            raise AssertionError(f"decode split: no scan kernel in a {label} decode: "
+                                 f"{names}, {launched.count(None)} of {len(dev)} device "
+                                 "operations not linked")
+        prev_end = max((ev.time_range.end for ev in dev[: scan[0]]), default=win.start)
+        calls.append({
+            "path": label, "host_ms": ms, "traced_host_ms": win.elapsed_us() / 1e3,
+            "launch_calls": sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                                for n in issued),
+            "copy_calls": sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in issued),
+            "kernels": sum(not n.startswith(("Memcpy", "Memset")) for n in names),
+            "memcpy_htod": sum(n.startswith("Memcpy HtoD") for n in names),
+            "memcpy_dtoh": sum(n.startswith("Memcpy DtoH") for n in names),
+            "memset": sum(n.startswith("Memset") for n in names),
+            "busy_ms": sum(dev[i].time_range.elapsed_us() for i in inside) / 1e3,
+            "unlinked": sum(launched[i] is None for i in inside),
+            "gap_before_scan_ms": max(dev[scan[0]].time_range.start - prev_end, 0) / 1e3,
+            "scan_ms": [dev[i].time_range.elapsed_us() / 1e3 for i in scan],
+        })
+    for cl in calls:
+        if (cl["launch_calls"], cl["copy_calls"], cl["kernels"], cl["memcpy_htod"],
+                cl["memcpy_dtoh"]) != (1, 2, 1, 1, 1):
+            raise AssertionError(f"a pass's decode is not one upload, one kernel and one "
+                                 f"download: {cl}")
+
+    def probe(kernel, names):
+        evs = [ev for ev in dev if kernel in ev.name][-10 * len(names):]
+        ms = [ev.time_range.elapsed_us() / 1e3 for ev in evs]
+        return {k: sum(ms[10 * i : 10 * i + 10]) / 10 for i, k in enumerate(names)}
+
     split = {
-        "exact_path": {
-            "launches": n_path,
-            "device_ms": [dev[i].time_range.elapsed_us() / 1e3 for i in scans[:n_path]],
-            "idle_gap_before_ms": gaps,
-            "device_busy_ms": sum(ev.time_range.elapsed_us() for ev in path) / 1e3,
-            "device_span_ms": (prev_end - path[0].time_range.start) / 1e3,
-        },
-        "probe_device_ms": {k: sum(probe[10 * i : 10 * i + 10]) / 10
-                            for i, k in enumerate(shapes)},
-        "probe_event_ms": _ms(lambda: hamming_scan(rots, codes), 50),
+        "calls": calls,
+        "first_pass": {"dcap": dc, "slots": int(qarr.shape[0] * dc),
+                       "quads": int(counts.sum())},
+        "decode_probe_device_ms": probe("decode_packed_kernel", dshapes),
+        "decode_probe_event_ms": _ms(lambda: decode_packed(*dshapes["full"], *gates), 50),
+        "hamming_probe_device_ms": probe("hamming_scan_kernel", shapes),
+        "hamming_probe_event_ms": _ms(lambda: hamming_scan(rots, codes), 50),
+        "ptxas": res,
     }
-    print(f"hamming split two_boards b{batch} exact path [{card}]: {json.dumps(split)}",
-          flush=True)
+    print(f"decode split two_boards b{batch} [{card}]: {json.dumps(split)}", flush=True)
     return split
 
 
@@ -1457,6 +1739,39 @@ def _held_run(det, name: str, img, ref: dict, batch: int, card: str, label: str,
           f"{batch / ms * 1e3:.1f} frames/s [{card}]", flush=True)
 
 
+@contextlib.contextmanager
+def _decoded_passes():
+    """Counts, in ``[n]``, the board passes whose search returns quads
+    while the block runs: the facade decodes exactly those passes."""
+    from aprilgrid_tpu_torch import native
+
+    search, n = native.find_board_batch, [0]
+
+    def counted(*a, **kw):
+        quads, counts = search(*a, **kw)
+        n[0] += bool(counts.any())
+        return quads, counts
+
+    native.find_board_batch = counted
+    try:
+        yield n
+    finally:
+        native.find_board_batch = search
+
+
+def _one_decode_per_pass(label: str, passes: int) -> int:
+    """The ``decode_packed`` launches of a path's held runs, one per pass
+    with quads and no ``hamming_scan`` launch."""
+    from aprilgrid_tpu_torch.kernels import LAUNCHES
+
+    if passes <= 0 or LAUNCHES["decode_packed"] != passes or LAUNCHES["hamming_scan"]:
+        raise AssertionError(
+            f"{label}: {LAUNCHES['decode_packed']} decode_packed and "
+            f"{LAUNCHES['hamming_scan']} hamming_scan launches for {passes} passes "
+            "with quads (expected one decode_packed per pass, no hamming_scan)")
+    return passes
+
+
 def phase_end_to_end(card: str, batch: int) -> dict:
     """detect_batch on the golden images on the card, the exact path then
     the turbo path; returns each kernel's launch count in the measured
@@ -1479,9 +1794,11 @@ def phase_end_to_end(card: str, batch: int) -> dict:
         gpu.detect_batch(np.stack([img] * batch))  # warm-up (allocator, build)
     torch.cuda.synchronize()
     reset_launches()
-    for n, img in imgs.items():
-        _held_run(gpu, n, img, refs[n], batch, card, "exact")
-    launches = {k: LAUNCHES[k] for k in ("front_kernel", "cluster_rochade_raw", "hamming_scan")}
+    with _decoded_passes() as passes:
+        for n, img in imgs.items():
+            _held_run(gpu, n, img, refs[n], batch, card, "exact")
+    launches = {k: LAUNCHES[k] for k in ("front_kernel", "cluster_rochade_raw")}
+    launches["decode_packed"] = _one_decode_per_pass("exact path", passes[0])
 
     # -- turbo path, both extraction variants (AG_TURBO_NMS is the policy
     # knob the facade reads)
@@ -1495,15 +1812,16 @@ def phase_end_to_end(card: str, batch: int) -> dict:
             tgpu.detect_batch(np.stack([imgs[n]] * batch))  # warm-up
     torch.cuda.synchronize()
     reset_launches()
-    for variant, label in (("1", "turbo-nms"), ("0", "turbo-drain")):
-        os.environ["AG_TURBO_NMS"] = variant
-        for n in TURBO:
-            _held_run(tgpu, n, imgs[n], trefs[label, n], batch, card, label)
+    with _decoded_passes() as passes:
+        for variant, label in (("1", "turbo-nms"), ("0", "turbo-drain")):
+            os.environ["AG_TURBO_NMS"] = variant
+            for n in TURBO:
+                _held_run(tgpu, n, imgs[n], trefs[label, n], batch, card, label)
     del os.environ["AG_TURBO_NMS"]
     for k in ("front_kernel_decimate", "cluster_rochade_raw[luma_f32]",
               "nms_extract_raw", "sparse_refine_raw"):
         launches[k] = LAUNCHES[k]
-    turbo_hamming = LAUNCHES["hamming_scan"]
+    turbo_decode = _one_decode_per_pass("turbo path", passes[0])
 
     # decimate="auto" leaves a frame under 2 MP to the exact path
     auto = TagDetector("t36h11", device="cuda", decimate="auto")
@@ -1511,11 +1829,12 @@ def phase_end_to_end(card: str, batch: int) -> dict:
         raise AssertionError('decimate="auto" on EuRoC differs from the exact path')
     print('e2e decimate="auto" on EuRoC (0.36 MP) = the exact path', flush=True)
     print(f"launches exact path {launches['front_kernel']}/"
-          f"{launches['cluster_rochade_raw']}/{launches['hamming_scan']} "
-          f"(front/cluster/hamming); turbo path {launches['front_kernel_decimate']}/"
+          f"{launches['cluster_rochade_raw']}/{launches['decode_packed']} "
+          f"(front/cluster/decode, one decode per pass with quads, no hamming_scan); "
+          f"turbo path {launches['front_kernel_decimate']}/"
           f"{launches['nms_extract_raw']}/{launches['cluster_rochade_raw[luma_f32]']}/"
-          f"{launches['sparse_refine_raw']}/{turbo_hamming} "
-          "(front_decimate/nms/cluster[luma_f32]/refine/hamming)", flush=True)
+          f"{launches['sparse_refine_raw']}/{turbo_decode} "
+          "(front_decimate/nms/cluster[luma_f32]/refine/decode)", flush=True)
 
     # the front-end's share of a chunk: device time of frontend_packed alone
     frames = torch.from_numpy(np.stack([imgs["two_boards"]] * batch)).cuda()
@@ -1759,8 +2078,12 @@ def main() -> int:
     ap.add_argument("--decimate-only", action="store_true",
                     help="build, then only front_kernel_decimate: bit-equal on the "
                          "four images and on synthetic frames (a misaligned raw "
-                         "pointer included), per-launch split, event ms and ptxas; "
-                         "and hamming_scan's split on the exact path")
+                         "pointer included), per-launch split, event ms and ptxas")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build, then only the decode kernels' checks and the "
+                         "split of each pass's decode (host ms, device operations, "
+                         "the idle gap before the scan), the hamming_scan probe "
+                         "and ptxas")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -1779,7 +2102,11 @@ def main() -> int:
     if args.decimate_only:
         front_decimate_synthetic_check()
         phase_decimate_split(card, batch=32)
-        phase_hamming_split(card, batch=32)
+        return 0
+    if args.decode_only:
+        rec = decode_checks(batch=32)
+        _print_times(card, list(rec.items()))
+        phase_decode_split(card, batch=32)
         return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
@@ -1803,6 +2130,7 @@ def main() -> int:
         return 0
     split = phase_cluster_split(card, batch=32)
     phase_turbo_split(card, batch=32)
+    phase_decode_split(card, batch=32)
     launches = phase_end_to_end(card, batch=32)
     launches.update(phase_split_chain(card, batch=32))
     for k, n in phase_plane_path(card, batch=32).items():
@@ -1820,8 +2148,7 @@ def main() -> int:
          tb["front"], worst("front", GOLDEN)),
         ("cluster_rochade_raw", "cluster.cu", "cluster.py:933",
          tb["cluster"], worst("cluster", GOLDEN)),
-        ("hamming_scan", "decode.cu", "decode.py:49",
-         rec["hamming"], 0.0),
+        ("hamming_scan", "decode.cu", "decode.py:49", rec["decode"], 0.0),
         ("front_kernel_decimate", "frontend.cu",
          "frontend.py:703", tb["front_decimate"], worst("front_decimate", GOLDEN)),
         ("cluster_rochade_raw[luma_f32]", "cluster.cu",
@@ -1839,17 +2166,27 @@ def main() -> int:
         ("front_kernel[emit_blur]", "frontend.cu", "frontend.py:357",
          tb["front_emit_blur"], worst("front_emit_blur", GOLDEN)),
     ]
+    # the scan runs inside the decode of each pass: its row counts the
+    # path's decode_packed launches and times that kernel, with the
+    # standalone entry's numbers beside them
+    counter = {"hamming_scan": "decode_packed"}
     kernels = []
     for name, src, replaces, r, err in rows:
-        if launches[name] <= 0:
+        n = launches[counter.get(name, name)]
+        if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": jp + replaces, "launches": launches[name],
+            "replaces": jp + replaces, "launches": n,
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
         })
+        if name in counter:
+            h = rec["hamming"]
+            kernels[-1].update(
+                launched_as=counter[name], standalone_ms=h["ms"],
+                standalone_plain_ms=h["plain_ms"], standalone_bound_ms=h["bound"][0])
     print(f"cluster split two_boards b32, device ms per launch [{card}]: "
           f"{json.dumps(split)}")
     print(json.dumps({"kernels": kernels}))
