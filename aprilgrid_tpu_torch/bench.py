@@ -1,0 +1,212 @@
+"""Port bench: ``TagDetector.detect_batch`` throughput of the PyTorch/CUDA
+port, one JSON line per cell, then a geomean line.
+
+The port's counterpart of the JAX package's ``bench.py``,
+``tools/bench_detection.py`` and ``tools/probe_timeline.py``. A cell is
+one golden image batched ``BENCH_BATCH`` times (default 128: four chunks
+at 1080p, so the runtime's pipeline can show) under one mode: the exact
+mode on the seven images the reference benches (EuRoC, TUM_VI, right,
+r45, top, iphone, two_boards), the turbo mode with the NMS and with the
+drain extraction on the two 1080p ones. Frames lie on the device, as in
+the JAX bench (``--host-frames`` passes a numpy batch, to show the
+upload of the raw frames).
+
+Per cell: the golden tag count asserted on every frame; ID parity and
+``corner_max_px`` of every frame against the port's own CPU run of one
+frame; frames/s over ``BENCH_REPS`` (default 5) timed calls after one
+warm-up, as median, min and max; the host's core count; the card's name
+and power limit as ``nvidia-smi`` gives them. ``--timeline`` adds one
+call under ``AG_TIMELINE=1``: the per-label ms sums, the host's wait in
+the first ``pack_read`` and the time after the last ``fe_dispatch``.
+``--trace`` adds the device-busy share of one call (torch.profiler).
+
+Run from the repo root: ``python3 -m aprilgrid_tpu_torch.bench`` (on the
+card) or ``... --device cpu`` (plain PyTorch versions, for tests). Env:
+``BENCH_BATCH``, ``BENCH_REPS``, and the runtime's own ``AG_CHUNK``,
+``AG_SEARCH_THREADS``, ``AG_SEARCH_ASYNC``, ``AG_FILL_RAMP``. Exits 3 on
+any parity miss.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .detector import TagDetector, _default_chunk
+from .utils.images import DATA, GOLDEN, read_png
+from .utils.profiling import device_busy
+
+TURBO_IMAGES = ("iphone", "two_boards")   # the turbo mode's frames: >= 2 MP
+# mode -> (decimate, AG_TURBO_NMS)
+MODES = {"exact": (False, None), "turbo-nms": (True, "1"), "turbo-drain": (True, "0")}
+
+
+def card_name() -> str | None:
+    """``name, power limit`` of the first card as nvidia-smi gives them,
+    or None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def timeline_summary(tl: list, t0: float, t1: float) -> dict:
+    """Per-label ms sums of a runtime timeline (labels without their chunk
+    and pass: ``fe_dispatch``, ``pack_read``, ``search_submit``,
+    ``search_wait``, ``dec_dispatch``, ``dec_read``), the host's wait in
+    the first ``pack_read`` (the pipeline's fill), the time from the end
+    of the last ``fe_dispatch`` to the end of the call (its drain), and
+    the call's wall ms (``t0``, ``t1`` on the same clock)."""
+    sums: dict = {}
+    for label, a, b in tl:
+        key = label.split(" ")[0]
+        sums[key] = sums.get(key, 0.0) + (b - a) * 1e3
+    reads = [b - a for label, a, b in tl if label.startswith("pack_read")]
+    last_fe = max(b for label, _, b in tl if label.startswith("fe_dispatch"))
+    return {
+        "label_ms": sums,
+        "first_pack_read_ms": reads[0] * 1e3,
+        "after_last_fe_dispatch_ms": (t1 - last_fe) * 1e3,
+        "wall_ms": (t1 - t0) * 1e3,
+        "events": len(tl),
+    }
+
+
+def _parity(res: list, ref: dict) -> tuple[bool, float]:
+    """(every frame's ID set equals ``ref``'s, max corner distance in px)."""
+    same, err = True, 0.0
+    for tags in res:
+        if set(tags) != set(ref):
+            same = False
+            continue
+        for tid, c in tags.items():
+            err = max(err, float(np.abs(np.asarray(c, np.float64)
+                                        - np.asarray(ref[tid], np.float64)).max()))
+    return same, err
+
+
+def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
+               host_frames: bool, timeline: bool, trace: bool, refs: dict) -> dict:
+    """One cell: warm-up + checks, ``reps`` timed calls, optional timeline
+    and device-busy runs; returns its JSON record."""
+    decimate, nms_env = MODES[mode]
+    if nms_env is not None:
+        os.environ["AG_TURBO_NMS"] = nms_env
+    try:
+        img = read_png(DATA / f"{name}.png")
+        if (name, mode) not in refs:
+            refs[name, mode] = TagDetector("t36h11", device="cpu",
+                                           decimate=decimate).detect(img)
+        det = TagDetector("t36h11", device=device, decimate=decimate)
+        host = np.ascontiguousarray(np.broadcast_to(img, (batch,) + img.shape))
+        frames = host if host_frames else torch.from_numpy(host).to(device)
+
+        def call():
+            out = det.detect_batch(frames)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            return out
+
+        res = call()  # warm-up: kernel builds, allocator, tables
+        counts = [len(t) for t in res]
+        if any(n != GOLDEN[name] for n in counts):
+            raise AssertionError(f"{name} {mode}: tag counts {sorted(set(counts))}, "
+                                 f"golden {GOLDEN[name]}")
+        ids_equal, err = _parity(res, refs[name, mode])
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        fps = sorted(batch / m * 1e3 for m in ms)
+        chunk = os.environ.get("AG_CHUNK")
+        rec = {
+            "cell": f"{name} {mode}", "image": name, "shape": list(img.shape),
+            "mode": mode, "batch": batch,
+            "chunk": int(chunk) if chunk else _default_chunk(*img.shape[:2]),
+            "frames_on": "host" if host_frames else "device", "reps": reps,
+            "frames_per_s": {"median": statistics.median(fps), "min": fps[0],
+                             "max": fps[-1]},
+            "call_ms": ms, "tags": counts[0], "golden": GOLDEN[name],
+            "ids_equal": ids_equal, "corner_max_px": err,
+            "host_cores": os.cpu_count(),
+            "search_threads": int(os.environ.get("AG_SEARCH_THREADS", "0")),
+            "search_async": os.environ.get("AG_SEARCH_ASYNC", "default"),
+            "fill_ramp": os.environ.get("AG_FILL_RAMP", "0"),
+            "device": device, "card": card_name() if device != "cpu" else None,
+        }
+        if timeline:
+            os.environ["AG_TIMELINE"] = "1"
+            try:
+                t0 = time.perf_counter()
+                call()
+                t1 = time.perf_counter()
+            finally:
+                del os.environ["AG_TIMELINE"]
+            rec["timeline"] = timeline_summary(det.last_timeline, t0, t1)
+        if trace:
+            rec["device_busy"] = device_busy(call) if device != "cpu" else None
+        return rec
+    finally:
+        if nms_env is not None:
+            del os.environ["AG_TURBO_NMS"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--images", default=",".join(GOLDEN),
+                    help="comma-separated golden images (default: all seven)")
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="comma-separated modes; the turbo ones run on the 1080p "
+                         "images only")
+    ap.add_argument("--host-frames", action="store_true",
+                    help="pass the batch as a numpy array (the facade uploads it "
+                         "chunk by chunk)")
+    ap.add_argument("--timeline", action="store_true",
+                    help="add one AG_TIMELINE=1 call per cell and its label sums")
+    ap.add_argument("--trace", action="store_true",
+                    help="add the device-busy share of one call (torch.profiler)")
+    args = ap.parse_args(argv)
+    batch = int(os.environ.get("BENCH_BATCH", "128"))
+    reps = int(os.environ.get("BENCH_REPS", "5"))
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("bench: no CUDA device (pass --device cpu for the plain versions)",
+              file=sys.stderr)
+        return 2
+    refs: dict = {}
+    fps: dict = {}
+    parity_ok = True
+    for mode in args.modes.split(","):
+        for name in args.images.split(","):
+            if MODES[mode][0] and name not in TURBO_IMAGES:
+                continue
+            rec = bench_cell(name, mode, args.device, batch, reps, args.host_frames,
+                             args.timeline, args.trace, refs)
+            parity_ok &= rec["ids_equal"] and rec["corner_max_px"] <= 1e-3
+            fps.setdefault(mode, []).append(rec["frames_per_s"]["median"])
+            print(json.dumps(rec), flush=True)
+    print(json.dumps({
+        "geomean_frames_per_s": {
+            m: math.exp(sum(math.log(f) for f in v) / len(v)) for m, v in fps.items()},
+        "cells": sum(len(v) for v in fps.values()), "batch": batch,
+        "parity_ok": parity_ok, "host_cores": os.cpu_count(),
+        "device": args.device, "card": card_name() if args.device != "cpu" else None,
+    }), flush=True)
+    return 0 if parity_ok else 3
+
+
+if __name__ == "__main__":
+    sys.exit(main())

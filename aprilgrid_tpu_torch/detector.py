@@ -2,13 +2,16 @@
 
 Mirrors the reference facade (TagDetector, src/detector.rs:17-23,363-541):
 the dense front-end and the tag decode run on the card through the port's
-kernels; the board search runs on the host in native C++ (native/). A
-batch is processed in chunks, each in order:
+kernels; the board search runs on the host in native C++ (native/). Each
+chunk of a batch goes
 
     front-end -> one device-to-host copy of the packed saddles
     -> board search -> decode -> release decoded saddles -> next pass
 
-for ``max_num_of_boards`` passes (src/detector.rs:510-538). With
+for ``max_num_of_boards`` passes (src/detector.rs:510-538), and the
+chunks overlap as in the JAX package's hybrid runtime: front-ends two
+chunks ahead, the search on a background worker, chunks and passes in
+wavefront order, the final pass read once (``_detect_hybrid``). With
 ``decimate`` the front-end is the approximate turbo path
 (pipeline.py::decimated_frontend_batch); frames beyond the fused kernels'
 label domain (8K-class) take the plane path
@@ -20,7 +23,9 @@ front-end (pipeline.py::saddle_frontend), always on the plane path.
 from __future__ import annotations
 
 import os
+import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -129,6 +134,8 @@ class TagDetector:
         self.consts = constants or CONSTANTS
         self.mode = mode
         self.decimate = decimate
+        # AG_TIMELINE=1: the host timeline of the last detect call
+        self.last_timeline: list | None = None
         native.build()  # the hybrid path needs the host search: raise now
 
     def _use_decimate(self, h: int, w: int) -> bool:
@@ -185,58 +192,125 @@ class TagDetector:
     # -- hybrid runtime -----------------------------------------------------
 
     def _detect_hybrid(self, imgs: torch.Tensor, chunk: int | None = None):
+        """The hybrid runtime (the JAX package's ``detector.py::
+        _detect_hybrid``): device front-end, native C++ board search on the
+        packed saddles, device decode, as a software pipeline over chunks
+        of the batch and board passes. Results equal a chunk-by-chunk,
+        pass-by-pass walk for every chunk size and schedule.
+
+        Front-ends are dispatched lazily, two chunks ahead of the search,
+        each with its saddle download started at dispatch (a copy into
+        pinned host memory and an event). The search runs on one
+        background worker (``AG_SEARCH_ASYNC``: ``1`` on, ``0`` inline,
+        default on when the host has more than one core) and sees numpy
+        arrays only. Chunks and passes are walked in wavefront order: wave
+        w runs (chunk w, pass 0), (chunk w-1, pass 1), ... so the device
+        is fed first and the host's waits on front-ends fill with deeper
+        passes of older chunks. The final pass's decodes start no copy of
+        their own; they are read once, fused, at the end.
+
+        ``AG_TIMELINE=1`` records ``(label, t0, t1)`` on the host clock
+        around every host-side blocking site into ``last_timeline``;
+        ``AG_FILL_RAMP=1`` splits a first chunk of 8 or more frames in
+        half, so the host's first read waits on half a front-end."""
         b = int(imgs.shape[0])
         hw = (int(imgs.shape[1]), int(imgs.shape[2]))
+        tl: list | None = [] if os.environ.get("AG_TIMELINE") else None
+        self.last_timeline = tl
         results: list[dict] = [{} for _ in range(b)]
-        if self.params.max_num_of_boards == 0 or b == 0:
+        n_passes = self.params.max_num_of_boards
+        if n_passes == 0 or b == 0:
             return results  # no pass reads a front-end: dispatch none
         if chunk is None:
             env = os.environ.get("AG_CHUNK")
             chunk = int(env) if env is not None else _default_chunk(*hw)
         chunk = max(1, int(chunk))
-        n_chunks = -(-b // chunk)
-        dec = self._use_decimate(*hw)
-        nms = self._turbo_nms(*hw) if dec else None
-        for i in range(n_chunks):
-            lo, hi = i * b // n_chunks, (i + 1) * b // n_chunks
-            self._detect_chunk(imgs[lo:hi], hw, results[lo:hi], dec, nms)
-        return results
-
-    def _detect_chunk(self, frames: torch.Tensor, hw, results: list[dict],
-                      decimate: bool, nms: bool | None):
-        packed, luma8 = frontend_packed(
-            frames.to(self.device), self.params, self.consts, self.caps,
-            decimate, nms,
-        )
-        pk = packed.cpu().numpy()  # the chunk's one saddle transfer
-        _warn_counters(pk[:, -1, :3])
-        pk = pk[:, :-1]
-        px = np.ascontiguousarray(pk[..., 0])
-        py = np.ascontiguousarray(pk[..., 1])
-        theta = np.ascontiguousarray(pk[..., 2])
-        alive = (pk[..., 3] > 0.5).astype(np.uint8)
-        nb = pk.shape[0]
-        # did the LAST pass decode any tag (and so release saddles)?
-        changed = np.ones(nb, bool)
         cap = (2 * self.caps.grid_radius + 1) ** 2
         dcap = min(cap, 2 * self.caps.max_tags)
-        for p in range(self.params.max_num_of_boards):
-            search_alive = alive
-            if p > 0:
+        n_chunks = -(-b // chunk)
+        bounds = [(i * b // n_chunks, (i + 1) * b // n_chunks) for i in range(n_chunks)]
+        if (os.environ.get("AG_FILL_RAMP", "0") not in ("0", "")
+                and n_chunks >= 2 and bounds[0][1] - bounds[0][0] >= 8):
+            mid = (bounds[0][0] + bounds[0][1]) // 2
+            bounds = [(bounds[0][0], mid), (mid, bounds[0][1])] + bounds[1:]
+            n_chunks += 1
+        dec = self._use_decimate(*hw)
+        nms = self._turbo_nms(*hw) if dec else None
+
+        if tl is not None:
+            def _ev(label, fn, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                tl.append((label, t0, time.perf_counter()))
+                return out
+        else:
+            def _ev(label, fn, *a, **kw):
+                return fn(*a, **kw)
+
+        # per chunk: (packed, luma8) on the device, which its decodes read,
+        # and its saddle download in flight; held to the end of the call
+        fronts: list[tuple | None] = [None] * n_chunks
+        state: list[dict | None] = [None] * n_chunks
+
+        def front(lo, hi):
+            # a host batch is uploaded here, inside the label
+            return frontend_packed(imgs[lo:hi].to(self.device), self.params,
+                                   self.consts, self.caps, dec, nms)
+
+        def ensure_fe(ci):
+            if 0 <= ci < n_chunks and fronts[ci] is None:
+                packed, luma8 = _ev(f"fe_dispatch c{ci}", front, *bounds[ci])
+                fronts[ci] = (packed, luma8, _HostCopy(packed))
+
+        def chunk_state(ci):
+            if state[ci] is None:
+                ensure_fe(ci)
+                pk = _ev(f"pack_read c{ci}", fronts[ci][2].read)  # (b, N+1, 4)
+                _warn_counters(pk[:, -1, :3])
+                pk = pk[:, :-1]
+                state[ci] = {
+                    "px": np.ascontiguousarray(pk[..., 0]),
+                    "py": np.ascontiguousarray(pk[..., 1]),
+                    "theta": np.ascontiguousarray(pk[..., 2]),
+                    "alive": (pk[..., 3] > 0.5).astype(np.uint8),
+                    # did the LAST pass decode any tag (and so release
+                    # saddles)? pass p > 0 skips the frames where not
+                    "changed": np.ones(pk.shape[0], bool),
+                }
+            return state[ci]
+
+        def submit_search(ci, p):
+            st = chunk_state(ci)
+            alive = st["alive"]
+            if p > 0 and not st["changed"].all():
                 # a frame whose previous pass decoded nothing released no
                 # saddles: its search input and result are unchanged, so
                 # zeroing its alive mask skips it (exact)
-                search_alive = alive * changed[:, None].astype(np.uint8)
-            changed = np.zeros(nb, bool)
-            quads, counts = native.find_board_batch(
-                px, py, theta, np.ascontiguousarray(search_alive),
+                alive = alive * st["changed"][:, None].astype(np.uint8)
+            st["changed"] = np.zeros(alive.shape[0], bool)
+            # the worker gets numpy arrays only; st["alive"] is written by
+            # apply_dec on this thread, and only after this search's result
+            fut = _ev(
+                f"search_submit c{ci} p{p}", pool.submit, native.find_board_batch,
+                st["px"], st["py"], st["theta"], alive,
                 spacing_ratio=self.params.tag_spacing_ratio,
                 max_seeds=self.consts.max_seeds,
                 early_exit_score=self.consts.early_exit_score,
                 cap=cap,
             )
+            return {"fut": fut, "quads": None, "dec": None, "done": False,
+                    "final": p == n_passes - 1}
+
+        def dispatch_job(ci, job):
+            # main thread only: resolve the search and launch its decode
+            if job["done"]:
+                return
+            quads, counts = _ev(f"search_wait c{ci}", job["fut"].result)
+            job["done"] = True
             if not counts.any():
-                continue
+                # nothing found in the chunk: no decode, no read
+                job["quads"] = quads[:, :1]
+                return
             # bucket the decode capacity to the chunk's largest count
             mx = int(counts.max())
             dc = dcap
@@ -245,11 +319,25 @@ class TagDetector:
                     dc = cand
                     break
             quads = np.ascontiguousarray(quads[:, :dc])
-            arr = self._decode(packed, luma8, quads, counts, hw).cpu().numpy()
+            packed, luma8, _ = fronts[ci]
+            out = _ev(f"dec_dispatch c{ci}", self._decode, packed, luma8, quads, counts, hw)
+            job["quads"] = quads
+            # the final pass's decodes are read once, fused, by collect_tail
+            job["dec"] = out if job["final"] else _HostCopy(out)
+
+        def poll_dispatch():
+            # launch the decodes of searches that finished meanwhile
+            for cj, job in pending.items():
+                if not job["done"] and job["fut"].done():
+                    dispatch_job(cj, job)
+
+        def apply_dec(ci, job, arr):
             valid = arr[..., 1] > 0.5
             fi, fj = np.nonzero(valid)
             if not fi.size:
-                continue
+                return
+            lo = bounds[ci][0]
+            st = state[ci]
             ids = arr[fi, fj, 0].astype(np.int64).tolist()
             cs = arr[fi, fj, 2:]
             cols = [cs[:, k].tolist() for k in range(8)]
@@ -257,25 +345,137 @@ class TagDetector:
                 [(x0, y0), (x1, y1), (x2, y2), (x3, y3)]
                 for x0, y0, x1, y1, x2, y2, x3, y3 in zip(*cols)
             ]
-            for f, tid, cr in zip(fi.tolist(), ids, corners):
-                results[f][tid] = cr
+            # fi is sorted (row-major): frame i owns [starts[i], starts[i+1])
+            starts = np.searchsorted(fi, np.arange(arr.shape[0] + 1)).tolist()
+            for i in range(arr.shape[0]):
+                s0, s1 = starts[i], starts[i + 1]
+                if s0 != s1:
+                    results[lo + i].update(zip(ids[s0:s1], corners[s0:s1]))
             # successfully decoded quads release their saddles
             # (src/detector.rs:517-536)
-            alive[np.repeat(fi, 4), quads[fi, fj].reshape(-1)] = 0
-            changed[np.unique(fi)] = True
+            st["alive"][np.repeat(fi, 4), job["quads"][fi, fj].reshape(-1)] = 0
+            st["changed"][np.unique(fi)] = True
+
+        def collect(ci, job):
+            dispatch_job(ci, job)  # waits on the search if it still runs
+            if job["dec"] is not None:
+                apply_dec(ci, job, _ev(f"dec_read c{ci}", job["dec"].read))
+
+        def collect_tail(jobs):
+            # the final pass feeds no further search: its decodes are
+            # concatenated on the device and read once
+            for ci, job in jobs:
+                dispatch_job(ci, job)
+            live = [(ci, job) for ci, job in jobs if job["dec"] is not None]
+            if len(live) == 1:
+                ci, job = live[0]
+                apply_dec(ci, job, _ev(f"dec_read c{ci}", _to_numpy, job["dec"]))
+            elif live:
+                flat = torch.cat([j["dec"].reshape(-1, j["dec"].shape[-1]) for _, j in live])
+                big = _ev("dec_read tail-fused", _to_numpy, flat)
+                off = 0
+                for ci, job in live:
+                    b_, d_, w_ = job["dec"].shape
+                    apply_dec(ci, job, big[off:off + b_ * d_].reshape(b_, d_, w_))
+                    off += b_ * d_
+
+        pending: dict[int, dict] = {}  # ci -> its last submitted search
+        async_env = os.environ.get("AG_SEARCH_ASYNC", "")
+        if async_env == "1" or (async_env != "0" and (os.cpu_count() or 1) > 1):
+            pool = ThreadPoolExecutor(max_workers=1)
+        else:
+            pool = _InlineExecutor()
+        ensure_fe(0)
+        ensure_fe(1)
+        try:
+            for wave in range(n_chunks + n_passes - 1):
+                for p in range(n_passes):
+                    # poll first, so decodes of finished searches dispatch
+                    # on edge waves too
+                    poll_dispatch()
+                    ci = wave - p
+                    if not 0 <= ci < n_chunks:
+                        continue
+                    if p > 0:
+                        collect(ci, pending[ci])
+                    pending[ci] = submit_search(ci, p)
+                # front-end lookahead at the END of the wave, after the
+                # wave's decodes entered the device queue, so a decode read
+                # does not wait behind a whole front-end
+                poll_dispatch()
+                ensure_fe(wave + 2)
+            collect_tail([(ci, pending[ci]) for ci in range(n_chunks)])
+        finally:
+            pool.shutdown(wait=True)
+        return results
 
     def _decode(self, packed, luma8, quads: np.ndarray, counts: np.ndarray, hw):
         """Decode the searched quads of a chunk on the device, one upload
         of quads | count (as aprilgrid_tpu/detector.py:555-559 packs them)
         and one ``decode_packed`` call; returns (B, dc, 10) f32 rows [id,
-        valid, corners x8]."""
+        valid, corners x8]. On the card the upload goes from pinned
+        memory, so it does not block the host: a pageable copy would wait
+        for the device's queue to drain."""
         c = self.consts
-        qarr = torch.from_numpy(pack_qarr(quads, counts)).to(packed.device)
+        qarr = torch.from_numpy(pack_qarr(quads, counts))
+        if packed.is_cuda:
+            qarr = qarr.pin_memory().to(packed.device, non_blocking=True)
         return decode_packed(
             packed, luma8, qarr, hw, quads.shape[1],
             self.spec, c.decode_margin, c.valid_brightness_threshold,
             c.max_invalid_bit, c.min_contrast,
         )
+
+
+class _InlineExecutor:
+    """Executor-shaped shim that runs the callable at submit time on the
+    calling thread (``AG_SEARCH_ASYNC=0``: the search without the
+    background worker)."""
+
+    class _Done:
+        def __init__(self, value):
+            self._value = value
+
+        def result(self):
+            return self._value
+
+        def done(self):
+            return True
+
+    def submit(self, fn, *args, **kwargs):
+        return self._Done(fn(*args, **kwargs))
+
+    def shutdown(self, wait=True):
+        pass
+
+
+class _HostCopy:
+    """A device-to-host copy of ``t`` started without blocking the host
+    (the counterpart of the JAX package's ``_copy_to_host_async``): the
+    device tensor, its pinned host destination and the event recorded
+    after the copy, all held until ``read``, which finds the bytes already
+    there. For a CPU tensor there is nothing to copy."""
+
+    __slots__ = ("src", "host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        self.src = t
+        self.host, self.event = t, None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+
+    def read(self) -> np.ndarray:
+        """The copied array; waits on the copy's event first."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 def pack_qarr(quads: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -296,7 +496,8 @@ def _default_chunk(h: int, w: int) -> int:
     """Frames per chunk for an (h, w) frame: 32 at 1080p, scaled at a
     constant pixel budget and rounded down to a power of two in [16, 64]
     (the JAX package's choice; 4K gets 16, small frames 64). The turbo
-    mode uses the same sizes."""
+    mode uses the same sizes: the JAX package's 3/2 turbo factor, a TPU
+    measurement, was not faster on the H100 at batch 128 (PERF.md)."""
     px = h * w
     budget = max(16, min(64, (40 * 1920 * 1080) // max(px, 1)))
     return 1 << (budget.bit_length() - 1)

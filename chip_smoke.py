@@ -53,7 +53,15 @@ Phases (a failing phase raises, so the script exits non-zero):
    ``decode_packed`` launch per pass with quads and no ``hamming_scan``; then
    the turbo mode on iphone and two_boards for the NMS and the drain
    variant, held the same way, and ``decimate="auto"`` on EuRoC against
-   the exact result; the front-end's share of a chunk's time;
+   the exact result; the front-end's share of a chunk's time; then the
+   hybrid runtime (``phase_runtime``) at batch 128, four chunks of a
+   1080p batch interleaving two_boards, iphone and blank frames, exact and
+   both turbo variants: its dispatches under
+   ``torch.cuda.set_sync_debug_mode("error")``, every frame against the
+   CPU run of its image, the results bit-equal across schedules (the
+   search inline and on its worker, ``chunk=batch``, ``AG_FILL_RAMP=1``),
+   the timeline's per-label sums, frames/s as median and spread of 5, the
+   device-busy share of one call;
 4. the split kernel chain at batch 32 on the four images (``gray_kernel ->
    fused_frontend -> cluster_rochade`` and ``front_kernel(emit_blur=True)
    -> cluster_rochade``), bit-equal to the fused chain;
@@ -79,7 +87,8 @@ front kernel's synthetic check and ``phase_front_split``, for work on the
 front kernel; ``--decimate-only`` runs the decimating front kernel's
 synthetic check and ``phase_decimate_split``, for work on that kernel;
 ``--decode-only`` runs the decode kernels' checks and
-``phase_decode_split``, for work on the decode).
+``phase_decode_split``, for work on the decode; ``--runtime-only`` runs
+``phase_runtime``, for work on the facade's runtime).
 """
 
 from __future__ import annotations
@@ -89,17 +98,13 @@ import contextlib
 import json
 import os
 import re
-import struct
-import subprocess
 import sys
 import time
-import zlib
-from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
-DATA = ROOT / "tests" / "data"
+from aprilgrid_tpu_torch.utils.images import DATA, read_png
+
 GOLDEN = {"EuRoC": 36, "TUM_VI": 36, "iphone": 66, "two_boards": 72}
 TURBO = ("iphone", "two_boards")   # the turbo mode's frames: >= 2 MP
 # per fitted candidate: 25 x 25 cone taps + 5 x 5 x 5 + 5 x 5 fit taps, x2
@@ -113,60 +118,6 @@ STENCIL_OPS = 42.0
 # operations/s; the bound of a kernel is the larger of its two times.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-
-
-def read_png(path) -> np.ndarray:
-    """Decode a non-interlaced 8/16-bit gray, gray+alpha, RGB or RGBA PNG
-    with numpy alone. The row filters are undone along anti-diagonals
-    (row + pixel column): every byte depends only on its left, upper and
-    upper-left neighbours, which lie on earlier diagonals."""
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat = 8, []
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if interlace or depth not in (8, 16) or ctype not in (0, 2, 4, 6):
-        raise ValueError(f"{path}: unsupported PNG (type {ctype}, depth {depth})")
-    ch = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
-    bpp = ch * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, w * bpp + 1)
-    ftype = raw[:, 0].astype(np.int32)
-    filt = raw[:, 1:].astype(np.int32)
-    out = np.zeros((h + 1, (w + 1) * bpp), np.int32)  # row 0 / col 0 stay 0
-    k = np.arange(bpp)
-    for s in range(h + w - 1):
-        r = np.arange(max(0, s - w + 1), min(h - 1, s) + 1)
-        px = s - r
-        rr = np.repeat(r, bpp) + 1
-        xx = (px[:, None] * bpp + k[None, :]).reshape(-1) + bpp
-        a = out[rr, xx - bpp]
-        b = out[rr - 1, xx]
-        c = out[rr - 1, xx - bpp]
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        ft = np.repeat(ftype[r], bpp)
-        pred = np.select(
-            [ft == 1, ft == 2, ft == 3, ft == 4],
-            [a, b, (a + b) // 2, paeth],
-            0,
-        )
-        out[rr, xx] = (filt[rr - 1, xx - bpp] + pred) & 255
-    img = out[1:, bpp:].astype(np.uint8)
-    if depth == 16:
-        img = (img[:, 0::2].astype(np.uint16) << 8) | img[:, 1::2]
-    img = img.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
 
 
 def _ms(fn, iters: int) -> float:
@@ -191,19 +142,12 @@ def _bound_ms(nbytes: float, f32_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase_build() -> str:
     from aprilgrid_tpu_torch import native
+    from aprilgrid_tpu_torch.bench import card_name
     from aprilgrid_tpu_torch.kernels import _lib
 
-    card = _card()
+    card = card_name()
     print(card, flush=True)
     t0 = time.perf_counter()
     native.build()
@@ -1847,6 +1791,175 @@ def phase_end_to_end(card: str, batch: int) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+RUNTIME_MODES = (("exact", False, None), ("turbo-nms", True, "1"),
+                 ("turbo-drain", True, "0"))
+
+
+def runtime_sync_check(card: str) -> None:
+    """The runtime's dispatches on a warmed CUDA chunk must not make the
+    host wait for the card (a wait kills the lookahead and leaves the
+    results right): one exact and one turbo ``frontend_packed`` with the
+    start of its saddle copy, one ``_decode`` and the tail's concat, each
+    under ``torch.cuda.set_sync_debug_mode("error")``. Every site is tried
+    before a failure is raised."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector, native
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.detector import _HostCopy
+    from aprilgrid_tpu_torch.pipeline import frontend_packed
+
+    img = read_png(DATA / "two_boards.png")
+    frames = torch.from_numpy(np.stack([img] * 32)).cuda()
+    hw = img.shape[:2]
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    cap = (2 * DEFAULT_CAPACITIES.grid_radius + 1) ** 2
+    det = TagDetector("t36h11", device="cuda")
+    synced = []
+
+    def no_sync(what, fn):
+        torch.cuda.synchronize()
+        fn()  # warm: allocator, tables, pinned blocks
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        except RuntimeError as e:
+            synced.append(f"{what}: {e}")
+            return None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    for label, dec, nms in (("exact", False, None), ("turbo-nms", True, True)):
+        def dispatch(dec=dec, nms=nms):
+            packed, luma8 = frontend_packed(frames, *cfg, dec, nms)
+            return packed, luma8, _HostCopy(packed)
+        out = no_sync(f"frontend_packed {label} + saddle copy", dispatch)
+        if out is None:
+            continue
+        packed, luma8, copy = out
+        pk = copy.read()[:, :-1]
+        quads, counts = native.find_board_batch(
+            np.ascontiguousarray(pk[..., 0]), np.ascontiguousarray(pk[..., 1]),
+            np.ascontiguousarray(pk[..., 2]), (pk[..., 3] > 0.5).astype(np.uint8),
+            spacing_ratio=DEFAULT_PARAMS.tag_spacing_ratio, max_seeds=CONSTANTS.max_seeds,
+            early_exit_score=CONSTANTS.early_exit_score, cap=cap)
+        quads = np.ascontiguousarray(quads[:, :96])
+        dout = no_sync(f"_decode {label}",
+                       lambda: det._decode(packed, luma8, quads, counts, hw))
+        if dout is not None:
+            no_sync(f"tail concat {label}",
+                    lambda: torch.cat([dout.reshape(-1, 10), dout.reshape(-1, 10)]))
+    if synced:
+        raise AssertionError("host syncs inside the runtime's dispatches: "
+                             + "; ".join(synced))
+    print("runtime sync-debug two_boards b32: frontend_packed (exact, turbo-nms) with "
+          "its saddle copy, _decode and the tail concat make the host wait for "
+          f"nothing [{card}]", flush=True)
+
+
+def phase_runtime(card: str, batch: int) -> dict:
+    """The hybrid runtime at ``batch`` (several chunks, so its pipeline can
+    show) on a 1080p batch interleaving two_boards, iphone and blank frames,
+    exact and both turbo variants, on device-resident frames: every frame
+    equal to the CPU run of its source image (golden counts, IDs, corners
+    within 1e-3 px), one ``decode_packed`` launch per pass with quads; the
+    results bit-equal across schedules (the search inline and on its
+    worker, ``AG_SEARCH_ASYNC=0`` with ``chunk=batch``, ``AG_FILL_RAMP=1``);
+    the timeline's per-label ms sums; frames/s as median and spread of 5
+    calls; the device-busy share of one call. Returns the launches of the
+    held runs."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.bench import timeline_summary
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.utils.profiling import device_busy
+
+    runtime_sync_check(card)
+    imgs = {n: read_png(DATA / f"{n}.png") for n in TURBO}
+    imgs["blank"] = np.full_like(imgs["two_boards"], 128)
+    order = ("two_boards", "iphone", "blank")
+    names = [order[i % len(order)] for i in range(batch)]
+    golden = dict(GOLDEN, blank=0)
+    frames = torch.from_numpy(np.stack([imgs[n] for n in names])).cuda()
+    launches: dict = {}
+    for label, dec, nms in RUNTIME_MODES:
+        with _env(**({"AG_TURBO_NMS": nms} if nms else {})):
+            cpu = TagDetector("t36h11", device="cpu", decimate=dec)
+            refs = {n: cpu.detect(img) for n, img in imgs.items()}
+            det = TagDetector("t36h11", device="cuda", decimate=dec)
+
+            def call(chunk=None):
+                out = det.detect_batch(frames, chunk=chunk)
+                torch.cuda.synchronize()
+                return out
+
+            call()  # warm-up
+            reset_launches()
+            with _decoded_passes() as passes:
+                res = call()
+            for k in ("front_kernel", "cluster_rochade_raw", "front_kernel_decimate",
+                      "cluster_rochade_raw[luma_f32]", "nms_extract_raw",
+                      "sparse_refine_raw"):
+                launches[k] = launches.get(k, 0) + LAUNCHES[k]
+            launches["decode_packed"] = launches.get("decode_packed", 0) + \
+                _one_decode_per_pass(f"runtime {label}", passes[0])
+            err = 0.0
+            for i, (n, tags) in enumerate(zip(names, res)):
+                ref = refs[n]
+                if len(tags) != golden[n] or set(tags) != set(ref):
+                    raise AssertionError(f"runtime {label} frame {i} ({n}): {len(tags)} "
+                                         f"tags, golden {golden[n]}, CPU run {len(ref)}")
+                err = max([err] + [float(np.abs(np.asarray(tags[t]) - np.asarray(ref[t])).max())
+                                   for t in tags])
+            if err > 1e-3:
+                raise AssertionError(f"runtime {label}: corners {err} px from the CPU run")
+            schedules = (("AG_SEARCH_ASYNC=0", {"AG_SEARCH_ASYNC": "0"}, None),
+                         ("AG_SEARCH_ASYNC=1", {"AG_SEARCH_ASYNC": "1"}, None),
+                         ("AG_SEARCH_ASYNC=0, chunk=batch", {"AG_SEARCH_ASYNC": "0"}, batch),
+                         ("AG_FILL_RAMP=1", {"AG_FILL_RAMP": "1"}, None))
+            for what, env, chunk in schedules:
+                with _env(**env):
+                    if call(chunk) != res:
+                        raise AssertionError(f"runtime {label}: {what} differs from the "
+                                             "default schedule")
+            with _env(AG_TIMELINE="1"):
+                t0 = time.perf_counter()
+                call()
+                t1 = time.perf_counter()
+            tl = timeline_summary(det.last_timeline, t0, t1)
+            ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                call()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            fps = sorted(batch / m * 1e3 for m in ms)
+            busy = device_busy(call)
+        print(f"runtime {label} 1080p b{batch} (two_boards/iphone/blank): every frame = "
+              f"the CPU run of its image (max corner diff {err:.2e} px), bit-equal across "
+              f"{len(schedules)} schedules; frames/s median {fps[2]:.1f} (min {fps[0]:.1f}, "
+              f"max {fps[-1]:.1f}); device busy {100 * busy['share']:.1f} % of "
+              f"{busy['wall_ms']:.1f} ms [{card}]", flush=True)
+        print(f"runtime {label} timeline [{card}]: {json.dumps(tl)}", flush=True)
+    return launches
+
+
 def phase_split_chain(card: str, batch: int) -> dict:
     """The JAX package's kernel-level chains, at full width on the card:
     ``gray_kernel -> fused_frontend(crop=False, emit_resp=False) ->
@@ -2084,6 +2197,10 @@ def main() -> int:
                          "split of each pass's decode (host ms, device operations, "
                          "the idle gap before the scan), the hamming_scan probe "
                          "and ptxas")
+    ap.add_argument("--runtime-only", action="store_true",
+                    help="build, then only the hybrid runtime at batch 128: sync-debug "
+                         "dispatches, every frame against the CPU run, bit-equal "
+                         "schedules, timeline sums, frames/s, device busy")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -2107,6 +2224,9 @@ def main() -> int:
         rec = decode_checks(batch=32)
         _print_times(card, list(rec.items()))
         phase_decode_split(card, batch=32)
+        return 0
+    if args.runtime_only:
+        phase_runtime(card, batch=128)
         return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
@@ -2132,6 +2252,8 @@ def main() -> int:
     phase_turbo_split(card, batch=32)
     phase_decode_split(card, batch=32)
     launches = phase_end_to_end(card, batch=32)
+    for k, n in phase_runtime(card, batch=128).items():
+        launches[k] += n
     launches.update(phase_split_chain(card, batch=32))
     for k, n in phase_plane_path(card, batch=32).items():
         launches[k] += n

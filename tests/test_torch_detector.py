@@ -58,10 +58,37 @@ def test_detect_golden_1080p(det, data_dir, name):
     _check(got, img)
 
 
-def test_detect_chunks_match_whole_batch(det, data_dir):
-    img = load_image(str(data_dir / "EuRoC.png"))
-    frames = np.stack([img, img[:, ::-1].copy(), img])
-    assert det.detect_batch(frames, chunk=1) == det.detect_batch(frames)
+@pytest.fixture(scope="module")
+def two_pass_scene(det):
+    """A two-board scene (two board passes), a blank frame, and the
+    single-frame results they must give."""
+    scene = make_stress_scene(2, kind="two_boards")
+    want = det.detect(scene)
+    assert any(t < 16 for t in want) and any(t >= 16 for t in want)
+    return scene, np.zeros_like(scene), want
+
+
+# (frames, chunk, AG_SEARCH_ASYNC, AG_FILL_RAMP): three frames in 3, 2 and 1
+# chunks; sixteen in two chunks of 8, the first split in half by the ramp
+@pytest.mark.parametrize("n,chunk,search_async,ramp", [
+    (3, 1, "0", "0"), (3, 1, "1", "0"), (3, 2, "0", "0"), (3, 2, "1", "0"),
+    (3, 3, "0", "0"), (3, 3, "1", "0"), (16, 8, "1", "1"),
+])
+def test_detect_chunks_match_whole_batch(det, two_pass_scene, monkeypatch, n, chunk,
+                                         search_async, ramp):
+    """The runtime's results are identical for every chunk size, with and
+    without the background search and the fill ramp."""
+    scene, blank, want = two_pass_scene
+    # boards in every chunk (and in both halves of the ramp's first chunk)
+    has = {0, 2} if n == 3 else {0, 5, 9}
+    frames = np.stack([scene if i in has else blank for i in range(n)])
+    monkeypatch.setenv("AG_SEARCH_ASYNC", search_async)
+    monkeypatch.setenv("AG_FILL_RAMP", ramp)
+    monkeypatch.setenv("AG_TIMELINE", "1")
+    assert det.detect_batch(frames, chunk=chunk) == [want if i in has else {}
+                                                     for i in range(n)]
+    fronts = [e[0] for e in det.last_timeline if e[0].startswith("fe_dispatch")]
+    assert len(fronts) == -(-n // chunk) + (ramp == "1")
 
 
 def test_blank_image_finds_nothing(det):
@@ -117,13 +144,13 @@ def test_ag_chunk_env_sizes_the_chunks(det, data_dir, monkeypatch):
     frames = np.stack([img, img[:, ::-1].copy(), img])
     want = det.detect_batch(frames)
     sizes = []
-    run_chunk = TagDetector._detect_chunk
+    front = tdetector.frontend_packed
 
-    def counted(self, chunk_frames, *a, **k):
+    def counted(chunk_frames, *a, **k):
         sizes.append(int(chunk_frames.shape[0]))
-        return run_chunk(self, chunk_frames, *a, **k)
+        return front(chunk_frames, *a, **k)
 
-    monkeypatch.setattr(TagDetector, "_detect_chunk", counted)
+    monkeypatch.setattr(tdetector, "frontend_packed", counted)
     monkeypatch.setenv("AG_CHUNK", "1")
     assert det.detect_batch(frames) == want
     assert sizes == [1, 1, 1]

@@ -39,7 +39,9 @@ def test_import_pulls_in_no_jax():
         "aprilgrid_tpu_torch.convert, aprilgrid_tpu_torch.kernels.nms, "
         "aprilgrid_tpu_torch.kernels.refine, aprilgrid_tpu_torch.kernels._fit, "
         "aprilgrid_tpu_torch.kernels.frontend, aprilgrid_tpu_torch.kernels.cluster, "
-        "aprilgrid_tpu_torch.ops.cluster, aprilgrid_tpu_torch.pipeline\n"
+        "aprilgrid_tpu_torch.ops.cluster, aprilgrid_tpu_torch.pipeline, "
+        "aprilgrid_tpu_torch.bench, aprilgrid_tpu_torch.utils.profiling, "
+        "aprilgrid_tpu_torch.utils.images\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
