@@ -14,8 +14,9 @@ upload of the raw frames).
 Per cell: the golden tag count asserted on every frame; ID parity and
 ``corner_max_px`` of every frame against the port's own CPU run of one
 frame; frames/s over ``BENCH_REPS`` (default 5) timed calls after one
-warm-up, as median, min and max; the host's core count; the card's name
-and power limit as ``nvidia-smi`` gives them. ``--timeline`` adds one
+warm-up, as median, min and max; the saddles one frame hands the board
+search (``saddles_per_frame``); the host's core count;
+the card's name and power limit as ``nvidia-smi`` gives them. ``--timeline`` adds one
 call under ``AG_TIMELINE=1``: the per-label ms sums, the host's wait in
 the first ``pack_read`` and the time after the last ``fe_dispatch``.
 ``--trace`` adds the device-busy share of one call (torch.profiler).
@@ -23,8 +24,9 @@ the first ``pack_read`` and the time after the last ``fe_dispatch``.
 Run from the repo root: ``python3 -m aprilgrid_tpu_torch.bench`` (on the
 card) or ``... --device cpu`` (plain PyTorch versions, for tests). Env:
 ``BENCH_BATCH``, ``BENCH_REPS``, and the runtime's own ``AG_CHUNK``,
-``AG_SEARCH_THREADS``, ``AG_SEARCH_ASYNC``, ``AG_FILL_RAMP``. Exits 3 on
-any parity miss.
+``AG_SEARCH_THREADS``, ``AG_SEARCH_ASYNC``, ``AG_FILL_RAMP``,
+``AG_NMS_MERGE`` (the NMS variant's peak merge). Exits 3 on any parity
+miss.
 """
 
 from __future__ import annotations
@@ -97,6 +99,18 @@ def _parity(res: list, ref: dict) -> tuple[bool, float]:
     return same, err
 
 
+def saddles_per_frame(img: np.ndarray, decimate: bool, device: str) -> int:
+    """The saddles the front-end hands the board search for one frame,
+    from the front-end the detector calls (the turbo mode's extraction
+    variant and peak merge as the environment selects them)."""
+    from .config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from .pipeline import saddle_frontend_batch
+
+    frames = torch.from_numpy(img)[None].to(device)
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    return int(saddle_frontend_batch(frames, *cfg, decimate)[0].valid.sum())
+
+
 def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
                host_frames: bool, timeline: bool, trace: bool, refs: dict) -> dict:
     """One cell: warm-up + checks, ``reps`` timed calls, optional timeline
@@ -146,6 +160,8 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
             "search_async": os.environ.get("AG_SEARCH_ASYNC", "default"),
             "fill_ramp": os.environ.get("AG_FILL_RAMP", "0"),
             "device": device, "card": card_name() if device != "cpu" else None,
+            "nms_merge": os.environ.get("AG_NMS_MERGE", "0"),
+            "saddles_per_frame": saddles_per_frame(img, decimate, device),
         }
         if timeline:
             os.environ["AG_TIMELINE"] = "1"

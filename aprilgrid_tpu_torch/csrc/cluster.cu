@@ -43,6 +43,11 @@
 //       [x, y, 0, c3, c4, c5, 1, label + 1] with an atomicAdd cursor; rows
 //       past the capacity are counted, not written.
 //
+// Row sharding (ag_cluster_rochade_raw with roff non-null): frame b is a
+// window whose row r is row r + roff[b] of a gh-row frame. The mask and the
+// bounds gate hold in the window's rows and in the frame's, y is emitted in
+// the frame's rows; the label stays the window's scan-order index.
+//
 // Launches (b)-(e) have a fixed grid (blockIdx.y is the frame, the blocks
 // of a frame stride over its list) and read the list lengths from device
 // memory: the host never waits. No index is divided in 64 bits.
@@ -106,13 +111,14 @@ __device__ __forceinline__ int reserve_entries(int n, int* cursor, int* sh) {
 
 __global__ void __launch_bounds__(THREADS)
 blur_mask_kernel(const void* raw, int hp, int wp, int channels, int mode,
-                 int h, int w, Taps7 taps, const float* thr, float* blur,
-                 int* labels, int* plist, int* npix) {
+                 int h, int w, Taps7 taps, const float* thr, const int* roff,
+                 int gh, float* blur, int* labels, int* plist, int* npix) {
   __shared__ TileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int c0 = si * STRIP_W;
   blur_tile(s, raw, b, ti, si, hp, wp, channels, mode, w, taps);
   const float t = thr[b];
+  const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
   const size_t fbase = (size_t)b * hp * wp;
   const int lane = threadIdx.x & 31;
   // a warp holds 32 consecutive columns of one row per step; ``mine`` keeps
@@ -125,8 +131,8 @@ blur_mask_kernel(const void* raw, int hp, int wp, int channels, int mode,
     int r = ti * TILE_H + y, c = c0 + x;
     int i = r * wp + c;
     blur[fbase + i] = s.lum[y + 1][x + 1];
-    bool m = r > 0 && r < h - 1 && c > 0 && c < w - 1 &&
-             hessian_at(s, y + 1, x + 1) < t;
+    bool m = r > 0 && r < h - 1 && r + ro > 0 && r + ro < gh - 1 && c > 0 &&
+             c < w - 1 && hessian_at(s, y + 1, x + 1) < t;
     const unsigned seg = __ballot_sync(FULL, m);
     labels[fbase + i] = m ? i - lane + run_start(seg, lane) : -1;
     mine |= (unsigned)m << step;
@@ -324,7 +330,7 @@ __global__ void stats_kernel(const int* labels, const int* plist,
 __global__ void __launch_bounds__(THREADS)
 record_kernel(const int* rlist, const int* nroot, const int* cnt,
               const unsigned long long* sums, const float* blur, int hp,
-              int wp, int h, int w, int hp2,
+              int wp, int h, int w, int hp2, const int* roff, int gh,
               const __grid_constant__ FitTaps fit, float move_thr, int* napp,
               float* fields, int capf) {
   constexpr int WARPS = THREADS / 32;
@@ -340,6 +346,7 @@ record_kernel(const int* rlist, const int* nroot, const int* cnt,
   const size_t fbase = (size_t)b * hp * wp;
   const size_t rbase = fbase / 2;
   const int n = nroot[b];
+  const int ro = roff != nullptr ? roff[b] : 0;
   for (int k = blockIdx.x * WARPS + warp; k < n; k += gridDim.x * WARPS) {
     const size_t slot = rbase + k;
     const float cn = __int2float_rn(cnt[slot]);
@@ -348,7 +355,8 @@ record_kernel(const int* rlist, const int* nroot, const int* cnt,
     const int rx = (int)floorf(__fadd_rn(cx, 0.5f));
     const int ry = (int)floorf(__fadd_rn(cy, 0.5f));
     // the gates below are the same for every lane of the warp
-    if (ry - hp2 < 0 || ry + hp2 >= h || rx - hp2 < 0 || rx + hp2 >= w)
+    if (ry - hp2 < 0 || ry + hp2 >= h || ry + ro - hp2 < 0 || ry + ro + hp2 >= gh ||
+        rx - hp2 < 0 || rx + hp2 >= w)
       continue;
     float x0, y0, c3, c4, c5;
     const bool ok = fit_record_warp(
@@ -360,7 +368,7 @@ record_kernel(const int* rlist, const int* nroot, const int* cnt,
     const int i = rlist[slot];
     float* row = fields + ((size_t)b * capf + at) * 8;
     row[0] = __fadd_rn((float)rx, x0);
-    row[1] = __fadd_rn((float)ry, y0);
+    row[1] = __fadd_rn((float)(ry + ro), y0);
     row[2] = 0.0f;
     row[3] = c3;
     row[4] = c4;
@@ -374,7 +382,8 @@ record_kernel(const int* rlist, const int* nroot, const int* cnt,
 // blur plane it wrote or was given. ctr: the (3, b) cursors — pixel list,
 // root list, appended rows.
 int launch_components(const float* blur, int b, int hp, int wp, int h, int w,
-                      const FitTaps& fit, float move_thr, int hp2, int* labels,
+                      const int* roff, int gh, const FitTaps& fit,
+                      float move_thr, int hp2, int* labels,
                       int* plist, int* rlist, int* cnt,
                       unsigned long long* sums, int* ctr, float* fields,
                       int capf, cudaStream_t st) {
@@ -393,15 +402,16 @@ int launch_components(const float* blur, int b, int hp, int wp, int h, int w,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   record_kernel<<<grid, THREADS, 0, st>>>(rlist, nroot, cnt, sums, blur, hp, wp,
-                                          h, w, hp2, fit, move_thr, napp,
-                                          fields, capf);
+                                          h, w, hp2, roff, gh, fit, move_thr,
+                                          napp, fields, capf);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // raw: (b, hp + 16, wp * channels) u8 (mode 0), u16 (mode 1) or f32 luma
-// (mode 2, one channel); thr: (b,) f32 device;
+// (mode 2, one channel); thr: (b,) f32 device; roff: (b,) int32 device row
+// offsets of windows of a gh-row frame, or null (gh = h);
 // scratch: blur (b, hp, wp) f32, labels and plist (b, hp, wp) int32, rlist
 // and cnt (b, hp * wp / 2) int32, sums (b, hp * wp / 2, 2) uint64; ctr
 // (3, b) int32 and fields (b, capf, 8) f32 zero-filled by the caller.
@@ -409,20 +419,20 @@ int launch_components(const float* blur, int b, int hp, int wp, int h, int w,
 extern "C" int ag_cluster_rochade_raw(
     const void* raw, int b, int hp, int wp, int channels, int mode, int h,
     int w, const void* thr, const float* taps7, const void* fit_taps,
-    float move_thr, int hp2, void* blur, void* labels, void* plist,
-    void* rlist, void* cnt, void* sums, void* ctr, void* fields, int capf,
-    void* stream) {
+    float move_thr, int hp2, const void* roff, int gh, void* blur,
+    void* labels, void* plist, void* rlist, void* cnt, void* sums, void* ctr,
+    void* fields, int capf, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   ag::Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
   dim3 tgrid(wp / ag::STRIP_W, hp / ag::TILE_H, b);
   blur_mask_kernel<<<tgrid, ag::THREADS, 0, st>>>(
       raw, hp, wp, channels, mode, h, w, taps, (const float*)thr,
-      (float*)blur, (int*)labels, (int*)plist, (int*)ctr);
+      (const int*)roff, gh, (float*)blur, (int*)labels, (int*)plist, (int*)ctr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_components((const float*)blur, b, hp, wp, h, w,
-                           *(const ag::FitTaps*)fit_taps, move_thr, hp2,
+  return launch_components((const float*)blur, b, hp, wp, h, w, (const int*)roff,
+                           gh, *(const ag::FitTaps*)fit_taps, move_thr, hp2,
                            (int*)labels, (int*)plist, (int*)rlist, (int*)cnt,
                            (unsigned long long*)sums, (int*)ctr,
                            (float*)fields, capf, st);
@@ -442,7 +452,7 @@ extern "C" int ag_cluster_rochade(
       (int*)plist, (int*)ctr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_components((const float*)blur, b, hp, wp, h, w,
+  return launch_components((const float*)blur, b, hp, wp, h, w, nullptr, h,
                            *(const ag::FitTaps*)fit_taps, move_thr, hp2,
                            (int*)labels, (int*)plist, (int*)rlist, (int*)cnt,
                            (unsigned long long*)sums, (int*)ctr,

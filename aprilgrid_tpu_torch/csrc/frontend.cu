@@ -377,11 +377,22 @@ __device__ __forceinline__ void load_row6(const FrontTileSmem& s, int y, int q,
 // tile (6 columns a row: output column 4q + j is the centre of j .. j + 2);
 // returns their minimum. With BORDER the block holds a pixel of the image's
 // one-pixel border or of the padding, whose response is 0; other blocks
-// skip the test. With ``blur`` (pixel (r0, c) of the frame's blur plane,
-// rows ``wp`` apart) the blurred pixels go out as 16-byte rows.
+// skip the test. Rows ``rows`` say which rows count: row r (of the h-row
+// image or window) is row r + ro of a gh-row frame, and the first and last
+// ``inset`` rows of the window are out too. With ``blur`` (pixel (r0, c)
+// of the frame's blur plane, rows ``wp`` apart) the blurred pixels go out
+// as 16-byte rows.
+struct Rows {
+  int h, ro, gh, inset;
+  __device__ __forceinline__ bool in(int r) const {
+    const int g = r + ro;
+    return r < h && g > 0 && g < gh - 1 && r >= inset && r < h - inset;
+  }
+};
+
 template <bool BORDER>
 __device__ __forceinline__ float response_run(const FrontTileSmem& s, int q,
-                                              int y0, int r0, int c, int h,
+                                              int y0, int r0, int c, Rows rows,
                                               int w, float* blur, int wp) {
   float up[6], mid[6], dn[6];
   load_row6(s, y0, q, up);
@@ -394,7 +405,7 @@ __device__ __forceinline__ float response_run(const FrontTileSmem& s, int q,
   for (int r = 0; r < FT_RRUN; ++r) {
     load_row6(s, y0 + r + 2, q, dn);
     // the reference leaves the image border 0; rows >= h are padding
-    const bool row_in = r0 + r > 0 && r0 + r < h - 1;
+    const bool row_in = rows.in(r0 + r);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float v = hessian_of(up[j], up[j + 1], up[j + 2], mid[j], mid[j + 1],
@@ -414,10 +425,11 @@ __device__ __forceinline__ float response_run(const FrontTileSmem& s, int q,
 // The passes after the staging, on the block's staged 72 x 72 luma: blur,
 // then the Hessian response of the tile's 64 x 64 pixels — a thread owns 4
 // adjacent columns of FT_RRUN rows — the border of the true (h, w) image
-// zeroed, reduced to the block's minimum (valid in thread 0). With ``blur``
-// (the frame's (h_pad, wp) blur plane) the blurred pixels go out too.
+// zeroed (and rows outside ``rows``), reduced to the block's minimum (valid
+// in thread 0). With ``blur`` (the frame's (h_pad, wp) blur plane) the
+// blurred pixels go out too.
 __device__ __forceinline__ float blur_response_min(FrontTileSmem& s, const Taps7& taps,
-                                                   int b, int ti, int si, int h,
+                                                   int b, int ti, int si, Rows rows,
                                                    int w, float* blur, int h_pad,
                                                    int wp) {
   __syncthreads();
@@ -429,19 +441,21 @@ __device__ __forceinline__ float blur_response_min(FrontTileSmem& s, const Taps7
   const int q = tid % (STRIP_W / 4), y0 = (tid / (STRIP_W / 4)) * FT_RRUN;
   const int r0 = ti * TILE_H + y0, c = si * STRIP_W + 4 * q;
   float* brow = blur != nullptr ? blur + ((size_t)b * h_pad + r0) * wp + c : nullptr;
-  // a border pixel: row 0 or >= h - 1, column 0 or >= w - 1
-  const bool border = ti == 0 || (ti + 1) * TILE_H >= h || si == 0 ||
-                      (si + 1) * STRIP_W >= w;
-  const float m = border ? response_run<true>(s, q, y0, r0, c, h, w, brow, wp)
-                         : response_run<false>(s, q, y0, r0, c, h, w, brow, wp);
+  // a border pixel: row 0 or >= h - 1, column 0 or >= w - 1; a window of a
+  // taller frame tests every row
+  const bool border = ti == 0 || (ti + 1) * TILE_H >= rows.h || si == 0 ||
+                      (si + 1) * STRIP_W >= w || rows.ro != 0 || rows.gh != rows.h ||
+                      rows.inset != 0;
+  const float m = border ? response_run<true>(s, q, y0, r0, c, rows, w, brow, wp)
+                         : response_run<false>(s, q, y0, r0, c, rows, w, brow, wp);
   return block_min(m, s.warp_min);
 }
 
 // ag_front_kernel's block: stage, then blur_response_min.
 __global__ void __launch_bounds__(THREADS, FT_BLOCKS)
 front_tile_kernel(const void* raw, int hp, int wp, int raw_mode, int h, int w,
-                  bool aligned, Taps7 taps, uint8_t* luma8, float* blur,
-                  float* strip_min, int n_strips) {
+                  bool aligned, Taps7 taps, const int* roff, int gh,
+                  uint8_t* luma8, float* blur, float* strip_min, int n_strips) {
   __shared__ __align__(16) FrontTileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -454,7 +468,8 @@ front_tile_kernel(const void* raw, int hp, int wp, int raw_mode, int h, int w,
   } else {
     stage_quads<RAW_RGB8>(s, raw, b, ti, si, hp, wp, w, aligned, luma8);
   }
-  const float m = blur_response_min(s, taps, b, ti, si, h, w, blur, hp, wp);
+  const Rows rows{h, roff != nullptr ? roff[b] : 0, gh, 0};
+  const float m = blur_response_min(s, taps, b, ti, si, rows, w, blur, hp, wp);
   if (tid == 0) strip_min[((size_t)b * gridDim.y + ti) * n_strips + si] = m;
 }
 
@@ -706,8 +721,8 @@ __device__ __forceinline__ void luma8_tail(const void* raw, int b, int ti, int s
 template <int RAW>
 __global__ void __launch_bounds__(THREADS, FD_BLOCKS)
 front_decimate_kernel(const void* raw, int hp, int wp, int hh, int wh, int hhp,
-                      int whp, bool aligned, Taps7 taps, uint8_t* luma8,
-                      float* half_p, float* strip_min) {
+                      int whp, bool aligned, Taps7 taps, const int* roff,
+                      int ghh, uint8_t* luma8, float* half_p, float* strip_min) {
   __shared__ __align__(16) FrontTileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -722,7 +737,10 @@ front_decimate_kernel(const void* raw, int hp, int wp, int hh, int wh, int hhp,
   }
   stage_half_quads<RAW>(s, raw, b, ti, si, hp, wp, hh, wh, hhp, whp, aligned,
                         luma8, half_p);
-  const float m = blur_response_min(s, taps, b, ti, si, hh, wh, nullptr, 0, 0);
+  // a window of a taller frame: its outer 4 half rows blur into its own
+  // replicated edge rows, and their responses are a neighbour's to take
+  const Rows rows{hh, roff != nullptr ? roff[b] : 0, ghh, roff != nullptr ? 4 : 0};
+  const float m = blur_response_min(s, taps, b, ti, si, rows, wh, nullptr, 0, 0);
   if (tid == 0) strip_min[((size_t)b * n_ht + ti) * n_hs + si] = m;
 }
 
@@ -734,13 +752,16 @@ Taps7 taps_of(const float* taps7) {
 
 }  // namespace
 
-// raw: (b, hp + 16, wp * channels) u8 (mode 0) or u16 (mode 1); luma8:
-// (b, hp, wp) u8; blur: (b, hp, wp) f32 or null (no blur plane wanted);
-// strip_min: (b, hp / 64, wp / 64) f32. Returns cudaGetLastError().
+// raw: (b, hp + 16, wp * channels) u8 (mode 0) or u16 (mode 1); roff:
+// (b,) int32 device row offsets of windows of a gh-row frame, or null (gh
+// = h); luma8: (b, hp, wp) u8; blur: (b, hp, wp) f32 or null (no blur
+// plane wanted); strip_min: (b, hp / 64, wp / 64) f32. Returns
+// cudaGetLastError().
 extern "C" int ag_front_kernel(const void* raw, int b, int hp, int wp,
                                int channels, int mode, int h, int w,
-                               const float* taps7, void* luma8, void* blur,
-                               void* strip_min, void* stream) {
+                               const float* taps7, const void* roff, int gh,
+                               void* luma8, void* blur, void* strip_min,
+                               void* stream) {
   const int n_strips = wp / STRIP_W;
   const int raw_mode =
       channels == 3 ? RAW_RGB8 : mode == MODE_U16 ? RAW_GRAY16 : RAW_GRAY8;
@@ -748,8 +769,8 @@ extern "C" int ag_front_kernel(const void* raw, int b, int hp, int wp,
   const bool aligned = (uintptr_t)raw % (mode == MODE_U16 ? 8 : 4) == 0;
   dim3 grid(n_strips, hp / TILE_H, b);
   front_tile_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      raw, hp, wp, raw_mode, h, w, aligned, taps_of(taps7), (uint8_t*)luma8,
-      (float*)blur, (float*)strip_min, n_strips);
+      raw, hp, wp, raw_mode, h, w, aligned, taps_of(taps7), (const int*)roff,
+      gh, (uint8_t*)luma8, (float*)blur, (float*)strip_min, n_strips);
   return (int)cudaGetLastError();
 }
 
@@ -783,15 +804,17 @@ extern "C" int ag_gray_kernel(const void* raw, int b, int h, int w,
   return (int)cudaGetLastError();
 }
 
-// raw, luma8: as above, (h, w) the true frame size. half_p:
-// (b, hhp + 16, whp) f32, the padded layout of the (h / 2, w / 2) half
-// plane; strip_min: (b, hhp / 64, whp / 64) f32 half-resolution response
-// minima. Returns cudaGetLastError().
+// raw, luma8: as above, (h, w) the true frame size; roff: (b,) int32
+// device row offsets in half rows of windows of a ghh-half-row frame, or
+// null (ghh = h / 2). half_p: (b, hhp + 16, whp) f32, the padded layout of
+// the (h / 2, w / 2) half plane; strip_min: (b, hhp / 64, whp / 64) f32
+// half-resolution response minima. Returns cudaGetLastError().
 extern "C" int ag_front_kernel_decimate(const void* raw, int b, int hp, int wp,
                                         int channels, int mode, int h, int w,
-                                        const float* taps7, void* luma8,
-                                        void* half_p, int hhp, int whp,
-                                        void* strip_min, void* stream) {
+                                        const float* taps7, const void* roff,
+                                        int ghh, void* luma8, void* half_p,
+                                        int hhp, int whp, void* strip_min,
+                                        void* stream) {
   // the 8- (u8, RGB: 3 x 8) or 16-byte (u16) loads of a raw row's 8 pixels
   const bool aligned = (uintptr_t)raw % (mode == MODE_U16 ? 16 : 8) == 0;
   // the half grid, or the luma8 grid where it is taller or wider
@@ -802,6 +825,6 @@ extern "C" int ag_front_kernel_decimate(const void* raw, int b, int hp, int wp,
                                    : front_decimate_kernel<RAW_GRAY8>;
   kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       raw, hp, wp, h / 2, w / 2, hhp, whp, aligned, taps_of(taps7),
-      (uint8_t*)luma8, (float*)half_p, (float*)strip_min);
+      (const int*)roff, ghh, (uint8_t*)luma8, (float*)half_p, (float*)strip_min);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 // response threshold -> per-cell candidate records of the response peaks.
 //
 // Replaces the JAX package's pallas/nms.py::nms_extract_raw (the turbo
-// path's clustering-free extraction, merge = 0). The TPU kernel evaluates
+// path's clustering-free extraction). The TPU kernel evaluates
 // everything densely per 160-row window — the ROCHADE record at every
 // pixel, two log-tree min filters, selection matmuls into the cell grid.
 // Here it is three launches over 64 x 64 tiles and device scratch that the
@@ -32,6 +32,27 @@
 //       [col + x0, row + y0, c3, c4, c5, row * w + col + 1] into the peak's
 //       aligned 4x4 cell of the zero-filled cell grid.
 //
+// With the geodesic peak merge (merge = m in 1..8) (a) also writes the
+// relay mask (a byte a pixel: response < thr strictly inside the image),
+// (c) marks its peaks in a zeroed byte plane instead of emitting them, and
+// a fourth launch emits:
+//
+//   (d) merge, flagged tiles only: a block stages the keys (a peak's
+//       position, else none) and the mask of its 64 x 64 tile with a
+//       MERGE_MAX-pixel halo in shared memory and runs the m sweeps of
+//       four passes (from +x, -x, +y, -y; each pass takes the neighbour's
+//       key where the mask holds and that key is smaller), a barrier
+//       around each pass. A key moves at most one pixel per pass, so after
+//       m sweeps the tile's own keys depend only on the halo: the staged
+//       region is exact there, and the block's answer is the merge of the
+//       whole plane. Its surviving peaks (key still their own) go out as
+//       in (c), a warp's fit each.
+//
+// Row sharding (roff non-null): pixel row r is row r + roff[b] of a
+// gh-row frame; the image-edge gates hold in both, y and the label are
+// emitted in the frame's rows. Without it the launches are the merge-free
+// ones above, unchanged.
+//
 // Two peaks are more than 3 pixels apart (Chebyshev), so no two share a
 // cell (nor a thread's four pixels) and the writes of (c) never collide.
 // Responses are compared with == on the values launch (a) stored, so ties
@@ -57,6 +78,9 @@ constexpr float BIGF = 3.0e38f;  // "not a candidate"
 constexpr int NMS_R = 3;         // Chebyshev radius of the peak window
 constexpr int PEAK_ROWS = 16;    // peaks_kernel: rows per block (two a warp)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MERGE_MAX = 8;     // sweeps of the peak merge, and its halo
+constexpr int ME = FIT_TILE + 2 * MERGE_MAX;   // merge_kernel: staged side
+constexpr unsigned NOKEY = 0xffffffffu;        // "no peak's key"
 
 static_assert(FIT_TILE == TILE_H && FIT_TILE == STRIP_W, "one tile size");
 
@@ -65,24 +89,29 @@ __device__ __forceinline__ int* tile_flag(int* flags, int b, int ti, int si,
   return flags + ((size_t)b * (hp / TILE_H) + ti) * (wp / STRIP_W) + si;
 }
 
+// MASK: also write the merge's relay mask.
+template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
 blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
-                 Taps7 taps, const float* thr, float* blur, float* cand,
-                 int* flags) {
+                 Taps7 taps, const float* thr, const int* roff, int gh,
+                 float* blur, float* cand, int* flags, uint8_t* mask) {
   __shared__ TileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int c0 = si * STRIP_W;
   blur_tile(s, half_p, b, ti, si, hp, wp, 1, MODE_F32, w, taps);
   const float t = thr[b];
+  const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
   const size_t fbase = (size_t)b * hp * wp;
   bool any = false;
   for (int idx = threadIdx.x; idx < TILE_H * STRIP_W; idx += THREADS) {
     int y = idx / STRIP_W, x = idx % STRIP_W;
-    int r = ti * TILE_H + y, c = c0 + x;
+    int r = ti * TILE_H + y, c = c0 + x, g = r + ro;
     size_t i = fbase + (size_t)r * wp + c;
     blur[i] = s.lum[y + 1][x + 1];
     float v = BIGF;
-    if (r >= hp2 && r < h - hp2 && c >= hp2 && c < w - hp2) {
+    const bool inb = r >= hp2 && r < h - hp2 && g >= hp2 && g < gh - hp2 &&
+                     c >= hp2 && c < w - hp2;
+    if (inb) {
       float resp = hessian_at(s, y + 1, x + 1);
       if (resp < t) {
         v = resp;
@@ -90,6 +119,10 @@ blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
       }
     }
     cand[i] = v;
+    if constexpr (MASK) {
+      const bool inner = r > 0 && r < h - 1 && g > 0 && g < gh - 1 && c > 0 && c < w - 1;
+      mask[i] = inner && (inb ? v < BIGF : hessian_at(s, y + 1, x + 1) < t);
+    }
   }
   const int some = __syncthreads_or(any);
   if (threadIdx.x == 0) *tile_flag(flags, b, ti, si, hp, wp) = some;
@@ -192,14 +225,49 @@ __device__ bool is_peak(const float* cd, int wp, int r, int c, float v) {
   return true;
 }
 
+// A warp's peaks, a bit per lane in ``bal`` at (row ``r``, column ``c``)
+// of each lane: the fit of each by the whole warp, its record written into
+// the peak's cell. Row ``r`` is row r + ro of the gh-row frame.
+__device__ __forceinline__ void emit_peaks(unsigned bal, int r, int c,
+                                           const float* blur, size_t fbase,
+                                           int hp, int wp, int w, int ro,
+                                           const FitTaps& fit, float move_thr,
+                                           FitScratch& scratch, float* cells,
+                                           int b) {
+  const int lane = threadIdx.x & 31;
+  const int cr = hp / 4, cc = wp / 4;
+  const size_t plane = (size_t)cr * cc;
+  while (bal) {
+    const int from = __ffs(bal) - 1;
+    bal &= bal - 1;
+    const int pr = __shfl_sync(FULL, r, from);
+    const int pc = __shfl_sync(FULL, c, from);
+    float x0, y0, c3, c4, c5;
+    fit_record_warp(scratch, blur + fbase + (size_t)(pr - 4) * wp + (pc - 4), wp,
+                    fit, move_thr, &x0, &y0, &c3, &c4, &c5);
+    if (lane == 0) {
+      float* cell = cells + (size_t)b * 6 * plane + (size_t)(pr / 4) * cc + (pc / 4);
+      cell[0] = __fadd_rn((float)pc, x0);
+      cell[plane] = __fadd_rn((float)(pr + ro), y0);
+      cell[2 * plane] = c3;
+      cell[3 * plane] = c4;
+      cell[4 * plane] = c5;
+      cell[5 * plane] = (float)((pr + ro) * w + pc + 1);
+    }
+  }
+}
+
+// MARK: the merge follows, so the peaks are marked in ``peaks`` and not
+// emitted.
+template <bool MARK>
 __global__ void __launch_bounds__(THREADS)
 peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
-             int w, const __grid_constant__ FitTaps fit, float move_thr,
-             float* cells) {
+             int w, const int* roff, const __grid_constant__ FitTaps fit,
+             float move_thr, uint8_t* peaks, float* cells) {
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * PEAK_ROWS;
   if (!*tile_flag(flags, b, r0 / TILE_H, blockIdx.x, hp, wp)) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int r = r0 + (threadIdx.x >> 4);
   const int c = blockIdx.x * STRIP_W + 4 * (threadIdx.x & 15);
   const size_t fbase = (size_t)b * hp * wp;
@@ -210,59 +278,116 @@ peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (v[k] < BIGF && is_peak(cd, wp, r, c + k, v[k])) pk = k;
+  if constexpr (MARK) {
+    if (pk >= 0) peaks[fbase + (size_t)r * wp + c + pk] = 1;
+    return;
+  }
   // no barrier in this kernel: a warp without a peak leaves. The fit reads
   // its tap tables from the parameter bank, where lanes that read different
   // rows take turns; staging them in shared memory would cost a block more
   // than its two or three fits do
   __shared__ FitScratch scratch[THREADS / 32];
-  unsigned bal = __ballot_sync(FULL, pk >= 0);
-  const int cr = hp / 4, cc = wp / 4;
-  const size_t plane = (size_t)cr * cc;
-  while (bal) {
-    const int from = __ffs(bal) - 1;
-    bal &= bal - 1;
-    const int pr = __shfl_sync(FULL, r, from);
-    const int pc = __shfl_sync(FULL, c + pk, from);
-    float x0, y0, c3, c4, c5;
-    fit_record_warp(scratch[warp],
-                    blur + fbase + (size_t)(pr - 4) * wp + (pc - 4), wp, fit,
-                    move_thr, &x0, &y0, &c3, &c4, &c5);
-    if (lane == 0) {
-      float* cell = cells + (size_t)b * 6 * plane + (size_t)(pr / 4) * cc + (pc / 4);
-      cell[0] = __fadd_rn((float)pc, x0);
-      cell[plane] = __fadd_rn((float)pr, y0);
-      cell[2 * plane] = c3;
-      cell[3 * plane] = c4;
-      cell[4 * plane] = c5;
-      cell[5 * plane] = (float)(pr * w + pc + 1);
+  emit_peaks(__ballot_sync(FULL, pk >= 0), r, c + pk, blur, fbase, hp, wp, w,
+             roff != nullptr ? roff[b] : 0, fit, move_thr, scratch[warp], cells, b);
+}
+
+// Launch (d): the merge on flagged tile (b, ti, si) and the emission of its
+// surviving peaks. Keys are positions r * wp + c (unsigned: hp * wp < 2^32
+// for every plane whose labels are f32-exact), NOKEY where no peak is.
+__global__ void __launch_bounds__(THREADS)
+merge_kernel(const float* blur, const uint8_t* peaks, const uint8_t* mask,
+             const int* flags, int hp, int wp, int w, const int* roff, int merge,
+             const __grid_constant__ FitTaps fit, float move_thr, float* cells) {
+  __shared__ unsigned key[ME * ME];
+  __shared__ uint8_t relay[ME * ME];
+  __shared__ FitScratch scratch[THREADS / 32];
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  if (!*tile_flag(const_cast<int*>(flags), b, ti, si, hp, wp)) return;
+  const size_t fbase = (size_t)b * hp * wp;
+  const int r0 = ti * FIT_TILE - MERGE_MAX, c0 = si * FIT_TILE - MERGE_MAX;
+  constexpr int PER = (ME * ME + THREADS - 1) / THREADS;
+  for (int idx = threadIdx.x; idx < ME * ME; idx += THREADS) {
+    const int r = r0 + idx / ME, c = c0 + idx % ME;
+    const bool in = r >= 0 && r < hp && c >= 0 && c < wp;
+    const size_t i = fbase + (size_t)r * wp + c;
+    key[idx] = in && peaks[i] ? (unsigned)r * wp + c : NOKEY;
+    relay[idx] = in ? mask[i] : 0;
+  }
+  __syncthreads();
+  // the four passes: the neighbour at +x, -x, +y, -y; outside the staged
+  // region there is no key (only the halo's own values go stale)
+  const int dy[4] = {0, 0, 1, -1}, dx[4] = {1, -1, 0, 0};
+  for (int sweep = 0; sweep < merge; ++sweep) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      unsigned nv[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int idx = threadIdx.x + k * THREADS;
+        if (idx >= ME * ME) break;
+        const int y = idx / ME + dy[d], x = idx % ME + dx[d];
+        const unsigned nk = y >= 0 && y < ME && x >= 0 && x < ME ? key[y * ME + x] : NOKEY;
+        const unsigned cur = key[idx];
+        nv[k] = relay[idx] && nk < cur ? nk : cur;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int idx = threadIdx.x + k * THREADS;
+        if (idx >= ME * ME) break;
+        key[idx] = nv[k];
+      }
+      __syncthreads();
     }
+  }
+  // the tile's own pixels: a peak survives where its key is its own
+  const int ro = roff != nullptr ? roff[b] : 0;
+  for (int k = 0; k < FIT_TILE * FIT_TILE / THREADS; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    const int y = idx / FIT_TILE, x = idx % FIT_TILE;
+    const int r = ti * FIT_TILE + y, c = si * FIT_TILE + x;
+    const unsigned kv = key[(y + MERGE_MAX) * ME + x + MERGE_MAX];
+    const bool keep = kv == (unsigned)r * wp + c;   // a peak's own position
+    emit_peaks(__ballot_sync(FULL, keep), r, c, blur, fbase, hp, wp, w, ro, fit,
+               move_thr, scratch[threadIdx.x >> 5], cells, b);
   }
 }
 
 }  // namespace
 
 // half_p: (b, hp + 16, wp) f32 padded half plane, hp and wp multiples of
-// 64, (h, w) its true size; thr: (b,) f32 device; scratch: blur and cand
-// (b, hp, wp) f32, flags (b, hp / 64, wp / 64) int32; cells:
+// 64, (h, w) its true size; thr: (b,) f32 device; roff: (b,) int32 device
+// row offsets or null, gh the frame's rows (h without roff); merge: 0-8
+// sweeps; scratch: blur and cand (b, hp, wp) f32, flags (b, hp / 64,
+// wp / 64) int32, with merge > 0 mask (b, hp, wp) bytes and peaks
+// (b, hp, wp) bytes zero-filled by the caller (else null); cells:
 // (b, 6, hp / 4, wp / 4) f32 zero-filled by the caller. Returns the first
 // launch error, -1 if the fit's tables are not in the order the tile form
-// takes (rochade.cuh::fit_tile_taps), or 0.
+// takes (rochade.cuh::fit_tile_taps), -2 for a merge beyond MERGE_MAX, or 0.
 extern "C" int ag_nms_extract_raw(const void* half_p, int b, int hp, int wp,
                                   int h, int w, const void* thr,
                                   const float* taps7, const void* fit_taps,
-                                  float move_thr, int hp2, void* blur,
-                                  void* cand, void* flags, void* cells,
-                                  void* stream) {
+                                  float move_thr, int hp2, const void* roff,
+                                  int gh, int merge, void* blur, void* cand,
+                                  void* flags, void* mask, void* peaks,
+                                  void* cells, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (merge < 0 || merge > MERGE_MAX) return -2;
   Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
   const FitTaps fit = *(const FitTaps*)fit_taps;
   FitTileTaps tile_taps;
   if (!fit_tile_taps(fit, &tile_taps)) return -1;
+  const int* ro = (const int*)roff;
   const dim3 tgrid(wp / STRIP_W, hp / TILE_H, b);
-  blur_resp_kernel<<<tgrid, THREADS, 0, st>>>(
-      (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr,
-      (float*)blur, (float*)cand, (int*)flags);
+  if (merge > 0)
+    blur_resp_kernel<true><<<tgrid, THREADS, 0, st>>>(
+        (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+        gh, (float*)blur, (float*)cand, (int*)flags, (uint8_t*)mask);
+  else
+    blur_resp_kernel<false><<<tgrid, THREADS, 0, st>>>(
+        (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+        gh, (float*)blur, (float*)cand, (int*)flags, nullptr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   gate_kernel<<<tgrid, THREADS, 0, st>>>((const float*)blur, (float*)cand,
@@ -271,8 +396,19 @@ extern "C" int ag_nms_extract_raw(const void* half_p, int b, int hp, int wp,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 pgrid(wp / STRIP_W, hp / PEAK_ROWS, b);
-  peaks_kernel<<<pgrid, THREADS, 0, st>>>((const float*)blur,
-                                          (const float*)cand, (int*)flags, hp,
-                                          wp, w, fit, move_thr, (float*)cells);
+  if (merge == 0) {
+    peaks_kernel<false><<<pgrid, THREADS, 0, st>>>(
+        (const float*)blur, (const float*)cand, (int*)flags, hp, wp, w, ro, fit,
+        move_thr, nullptr, (float*)cells);
+    return (int)cudaGetLastError();
+  }
+  peaks_kernel<true><<<pgrid, THREADS, 0, st>>>(
+      (const float*)blur, (const float*)cand, (int*)flags, hp, wp, w, ro, fit,
+      move_thr, (uint8_t*)peaks, nullptr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  merge_kernel<<<tgrid, THREADS, 0, st>>>(
+      (const float*)blur, (const uint8_t*)peaks, (const uint8_t*)mask,
+      (const int*)flags, hp, wp, w, ro, merge, fit, move_thr, (float*)cells);
   return (int)cudaGetLastError();
 }

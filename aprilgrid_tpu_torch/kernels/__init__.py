@@ -21,6 +21,13 @@ LAUNCHES = {
     "cluster_rochade": 0,                # the cluster kernel fed a blur plane
     "front_kernel[emit_blur]": 0,        # the front kernel writing its blur plane
     "decode_packed": 0,                  # a pass's decode, the scan included
+    "nms_extract_raw[merge]": 0,         # the NMS kernel with the peak merge
+    # the row-sharding modes (a window of a taller frame: row_off, global_h)
+    "front_kernel[row_off]": 0,
+    "front_kernel_decimate[row_off]": 0,
+    "cluster_rochade_raw[row_off]": 0,
+    "cluster_rochade_raw[luma_f32,row_off]": 0,
+    "nms_extract_raw[row_off]": 0,
 }
 
 

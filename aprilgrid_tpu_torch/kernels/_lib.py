@@ -98,8 +98,8 @@ def parse_ptxas(text: str) -> list[dict]:
     out = []
     for mangled, stack, st, ld, regs, rest in found:
         name = re.findall(r"\d+([a-z][a-z_]*_kernel)", mangled)
-        # a kernel template's instance: its integer argument, as <n>
-        arg = re.search(r"_kernelILi(\d+)EE", mangled)
+        # a kernel template's instance: its integer or bool argument, as <n>
+        arg = re.search(r"_kernelIL[ib](\d+)EE", mangled)
         kernel = name[-1] + (f"<{arg.group(1)}>" if arg else "") if name else mangled
         smem = re.search(r"(\d+) bytes smem", rest)
         out.append({
@@ -122,14 +122,14 @@ def lib() -> ctypes.CDLL:
     handle = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.ag_front_kernel.restype = i
-    handle.ag_front_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p, p]
+    handle.ag_front_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, i, p, p, p, p]
     handle.ag_fused_frontend.restype = i
     handle.ag_fused_frontend.argtypes = [p, i, i, i, i, i, i, i, p, p, p, i, i, p, p]
     handle.ag_gray_kernel.restype = i
     handle.ag_gray_kernel.argtypes = [p, i, i, i, i, i, i, i, p, p, p]
     handle.ag_cluster_rochade_raw.restype = i
     handle.ag_cluster_rochade_raw.argtypes = [
-        p, i, i, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p, p, p, p, i, p,
+        p, i, i, i, i, i, i, i, p, p, p, f, i, p, i, p, p, p, p, p, p, p, p, i, p,
     ]
     handle.ag_cluster_rochade.restype = i
     handle.ag_cluster_rochade.argtypes = [
@@ -137,10 +137,12 @@ def lib() -> ctypes.CDLL:
     ]
     handle.ag_front_kernel_decimate.restype = i
     handle.ag_front_kernel_decimate.argtypes = [
-        p, i, i, i, i, i, i, i, p, p, p, i, i, p, p,
+        p, i, i, i, i, i, i, i, p, p, i, p, p, i, i, p, p,
     ]
     handle.ag_nms_extract_raw.restype = i
-    handle.ag_nms_extract_raw.argtypes = [p, i, i, i, i, i, p, p, p, f, i, p, p, p, p, p]
+    handle.ag_nms_extract_raw.argtypes = [
+        p, i, i, i, i, i, p, p, p, f, i, p, i, i, p, p, p, p, p, p, p,
+    ]
     handle.ag_sparse_refine_raw.restype = i
     handle.ag_sparse_refine_raw.argtypes = [
         p, i, i, i, i, i, i, i, p, p, p, i, p, f, i, p, p,

@@ -39,7 +39,12 @@ Differences from the TPU kernel, by design:
   shortens the sweep window, both to cut its serial root drain; neither
   changes which blobs are accepted on the scenes the tests hold it to
   (``tests/test_torch_decimate.py``), and the JAX package's own plain
-  turbo path has no such filter either.
+  turbo path has no such filter either;
+* the row-sharding mode masks in the window's own rows (0, h-1) as well
+  as the frame's and gates the rounded centroid in both, so every read
+  stays in the window; the TPU kernel masks in its sweep window's rows and
+  the frame's. On the rows a window claims the two agree
+  (``tests/test_torch_cluster.py::test_cluster_row_off_matches_jax``).
 """
 
 from __future__ import annotations
@@ -55,34 +60,40 @@ from ..ops.rochade import Saddles, fit_record, gather_patches, saddle_angles
 from . import LAUNCHES
 from ._fit import fit_struct
 from ._lib import check, lib, require_cuda, stream_of
-from .frontend import _taps, check_raw, raw_luma
+from .frontend import _taps, check_raw, check_rows, raw_luma
 
 _CAPF = 1024  # accepted-candidate capacity PER FRAME (append-compacted)
 _MODE_F32 = 2  # csrc/stencil.cuh: the frame is an f32 luma plane
 
 
 def candidate_rows_plain(blur: torch.Tensor, thr: torch.Tensor,
-                         hp2: int = 4, move_thr: float = 1.0) -> torch.Tensor:
+                         hp2: int = 4, move_thr: float = 1.0, ro: int = 0,
+                         gh: int | None = None) -> torch.Tensor:
     """Every accepted candidate row (K, 8) of one (h, w) blur plane, in
     scan order and before the capacity cut: mask ``resp < thr`` inside the
     image's zero border, label the 4-connected components, round each
-    centroid, gate the 9x9 support on the image and fit."""
+    centroid, gate the 9x9 support on the image and fit. A window (row r is
+    row r + ``ro`` of a ``gh``-row frame) gates in its own rows and the
+    frame's and emits y in the frame's rows."""
     h, w = blur.shape
+    gh = h if gh is None else gh
     dev = blur.device
     resp = hessian_response(blur)
     r = torch.arange(h, device=dev)[:, None]
     c = torch.arange(w, device=dev)[None, :]
-    mask = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1) & (resp < thr)
+    mask = ((r > 0) & (r < h - 1) & (r + ro > 0) & (r + ro < gh - 1)
+            & (c > 0) & (c < w - 1) & (resp < thr))
     root, centers = cluster_centroids(mask)
     rx = rust_round(centers[:, 0]).to(torch.int64)
     ry = rust_round(centers[:, 1]).to(torch.int64)
-    in_b = (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
+    in_b = ((ry - hp2 >= 0) & (ry + hp2 < h) & (ry + ro - hp2 >= 0) & (ry + ro + hp2 < gh)
+            & (rx - hp2 >= 0) & (rx + hp2 < w))
     x0, y0, c3, c4, c5, ok = fit_record(
         gather_patches(blur, rx, ry, hp2 // 2), hp2 // 2, move_thr
     )
     rows = torch.stack(
         [
-            rx.to(torch.float32) + x0, ry.to(torch.float32) + y0,
+            rx.to(torch.float32) + x0, (ry + ro).to(torch.float32) + y0,
             torch.zeros_like(x0), c3, c4, c5, torch.ones_like(x0),
             (root + 1).to(torch.float32),
         ],
@@ -92,27 +103,37 @@ def candidate_rows_plain(blur: torch.Tensor, thr: torch.Tensor,
 
 
 def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
-                            hp2: int = 4, move_thr: float = 1.0):
+                            hp2: int = 4, move_thr: float = 1.0,
+                            row_off: torch.Tensor | None = None,
+                            global_h: int | None = None):
     """Plain cluster + ROCHADE on (B, h, w) blur planes
-    (``candidate_rows_plain`` per frame, cut to the capacity). Returns what
-    ``cluster_rochade_raw`` returns, rows in scan order."""
+    (``candidate_rows_plain`` per frame, cut to the capacity; with
+    ``row_off`` frame i is a window at row offset row_off[i] of a
+    ``global_h``-row frame). Returns what ``cluster_rochade_raw`` returns,
+    rows in scan order."""
     b = blur.shape[0]
     fields = torch.zeros((b, _CAPF, 8), dtype=torch.float32, device=blur.device)
     counts = torch.zeros((b, 2), dtype=torch.float32, device=blur.device)
+    offs = [0] * b if row_off is None else [int(v) for v in row_off.tolist()]
     for i in range(b):
-        rows = candidate_rows_plain(blur[i], thr[i], hp2, move_thr)[:_CAPF]
+        rows = candidate_rows_plain(blur[i], thr[i], hp2, move_thr, offs[i],
+                                    global_h)[:_CAPF]
         fields[i, : rows.shape[0]] = rows
         counts[i, 0] = rows.shape[0]
     return fields, counts
 
 
 def cluster_rochade_raw_plain(raw_p, thr, h, w, channels=1, u16=False,
-                              sigma=1.5, hp2=4, move_thr=1.0, luma_f32=False):
+                              sigma=1.5, hp2=4, move_thr=1.0, luma_f32=False,
+                              row_off=None, global_h=None):
     """Plain PyTorch version of ``cluster_rochade_raw``."""
-    lf = raw_p[:, 8 : 8 + h, : w * channels]
+    # the blur of the padded frame: its margins are the frame's replicated
+    # edges, or a window's neighbouring rows
+    lf = raw_p[:, :, : w * channels]
     if not luma_f32:
         lf, _ = raw_luma(lf, channels, u16)
-    return cluster_from_blur_plain(gaussian_blur(lf, sigma), thr, hp2, move_thr)
+    blur = gaussian_blur(lf, sigma)[:, 8 : 8 + h]
+    return cluster_from_blur_plain(blur, thr, hp2, move_thr, row_off, global_h)
 
 
 def cluster_rochade_raw(
@@ -126,6 +147,8 @@ def cluster_rochade_raw(
     hp2: int = 4,
     move_thr: float = 1.0,
     luma_f32: bool = False,
+    row_off: torch.Tensor | None = None,  # (B,) int32 window row offsets
+    global_h: int | None = None,
 ):
     """Accepted candidate saddles, append-compacted per frame.
 
@@ -134,15 +157,27 @@ def cluster_rochade_raw(
     and ``h, w`` are its true size: the blur reads the plane as it is,
     everything after is unchanged.
 
+    Row sharding (the counterpart of ``cluster_rochade_raw``'s
+    ``row_off``/``global_h``): frame i is a window whose row r is row
+    r + row_off[i] of a ``global_h``-row frame, its margin and padding rows
+    the frame's neighbouring rows. The mask and the rounded centroid's
+    bounds gate hold in the window's rows and in the frame's; y is emitted
+    in the frame's rows, the label stays the window's scan-order index.
+
     Returns (fields (B, _CAPF, 8) f32: [x, y, k, c3, c4, c5, ok, label+1]
     with k left 0 (saddles_from_candidates derives it), counters (B, 2)
     f32: [#appended (== _CAPF signals possible overflow), #clusters
     dropped — always 0, the labeling has no blob-size cap])."""
     check_raw(raw_p, channels, u16, "cluster_rochade_raw", luma_f32)
-    _check_fit_args("cluster_rochade_raw", raw_p, thr, h, w, hp2)
+    row_off = check_rows(row_off, global_h, raw_p.shape[0], raw_p.device,
+                         "cluster_rochade_raw")
+    gh = h if row_off is None else global_h
+    # the window's labels, and the frame's once a caller makes them global
+    _check_fit_args("cluster_rochade_raw", raw_p, thr, max(h, gh), w, hp2)
     if raw_p.device.type == "cpu":
         return cluster_rochade_raw_plain(
-            raw_p, thr, h, w, channels, u16, sigma, hp2, move_thr, luma_f32
+            raw_p, thr, h, w, channels, u16, sigma, hp2, move_thr, luma_f32,
+            row_off, global_h,
         )
     require_cuda(raw_p, "cluster_rochade_raw")
     b, rows, _ = raw_p.shape
@@ -156,11 +191,14 @@ def cluster_rochade_raw(
         raw_p.data_ptr(), b, h_pad, w_pad, channels,
         _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(),
         ctypes.addressof(taps), ctypes.addressof(fit),
-        float(move_thr), hp2, blur.data_ptr(),
-        *(t.data_ptr() for t in scratch), _CAPF, stream_of(raw_p),
+        float(move_thr), hp2, None if row_off is None else row_off.data_ptr(), gh,
+        blur.data_ptr(), *(t.data_ptr() for t in scratch), _CAPF, stream_of(raw_p),
     )
     check(err, "cluster_rochade_raw")
-    LAUNCHES["cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"] += 1
+    key = "cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"
+    if row_off is not None:
+        key = "cluster_rochade_raw[luma_f32,row_off]" if luma_f32 else "cluster_rochade_raw[row_off]"
+    LAUNCHES[key] += 1
     return _results(scratch)
 
 

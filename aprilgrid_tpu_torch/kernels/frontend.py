@@ -42,6 +42,10 @@ from ._lib import check, lib, require_cuda, stream_of
 
 TILE_H = 64    # image rows per tile (the TPU kernel's grid step)
 STRIP_W = 64   # image columns per CUDA block
+# front_kernel_decimate on a window: its first and last half rows blur into
+# the window's own replicated edge rows, so their responses are left to the
+# neighbouring window (csrc/frontend.cu: the decimating kernel's Rows)
+_WINDOW_INSET = 4
 
 
 def _raw_mode(img: torch.Tensor, name: str):
@@ -99,13 +103,22 @@ def pad_raw(img: torch.Tensor):
     return out.contiguous(), hgt, wid, channels, u16
 
 
-def _zero_border(resp: torch.Tensor, true_shape: tuple[int, int]) -> torch.Tensor:
+def _zero_border(resp: torch.Tensor, true_shape: tuple[int, int],
+                 row_off: torch.Tensor | None = None, global_h: int | None = None,
+                 inset: int = 0) -> torch.Tensor:
     """(..., R, C) response plane with the one-pixel border of the true
-    (h, w) image and everything outside it set to 0."""
+    (h, w) image and everything outside it set to 0. With ``row_off`` the
+    (B, R, C) planes are windows: row r of frame i is row r + row_off[i] of
+    a ``global_h``-row frame, whose border is zeroed, as are the window's
+    rows from h on and its first and last ``inset`` rows."""
     h, w = true_shape
     r = torch.arange(resp.shape[-2], device=resp.device)[:, None]
     c = torch.arange(resp.shape[-1], device=resp.device)[None, :]
-    border = (r <= 0) | (r >= h - 1) | (c == 0) | (c >= w - 1)
+    g, gh = r, h
+    if row_off is not None:
+        g, gh = r + row_off.to(device=resp.device, dtype=torch.int64)[:, None, None], global_h
+    border = ((g <= 0) | (g >= gh - 1) | (r >= h) | (r < inset) | (r >= h - inset)
+              | (c == 0) | (c >= w - 1))
     return torch.where(border, torch.zeros_like(resp), resp)
 
 
@@ -116,29 +129,31 @@ def _tile_min(resp: torch.Tensor) -> torch.Tensor:
 
 
 def _blur_and_tile_min(lf_p: torch.Tensor, sigma: float,
-                       true_shape: tuple[int, int]):
+                       true_shape: tuple[int, int], *rows):
     """(B, Hp+16, Wp) f32 luma in the padded layout -> (blur (B, Hp, Wp),
     (B, Hp/64) minima of the Hessian response per 64-row tile, the border
-    of the true (h, w) image and everything outside it zeroed)."""
+    of the true (h, w) image and everything outside it zeroed; ``rows``:
+    the window arguments of ``_zero_border``)."""
     # blur over the whole padded plane: its clamped borders equal the
     # reference's (the padding replicates the image's edge pixels)
     blur = gaussian_blur(lf_p, sigma)
-    resp = _zero_border(hessian_response(blur)[:, 8:-8], true_shape)
+    resp = _zero_border(hessian_response(blur)[:, 8:-8], true_shape, *rows)
     return blur[:, 8:-8], _tile_min(resp)
 
 
 def _response_tile_min(lf_p: torch.Tensor, sigma: float,
-                       true_shape: tuple[int, int]) -> torch.Tensor:
+                       true_shape: tuple[int, int], *rows) -> torch.Tensor:
     """The tile minima of ``_blur_and_tile_min`` alone."""
-    return _blur_and_tile_min(lf_p, sigma, true_shape)[1]
+    return _blur_and_tile_min(lf_p, sigma, true_shape, *rows)[1]
 
 
 def front_kernel_plain(raw_p: torch.Tensor, sigma: float,
                        true_shape: tuple[int, int], channels: int, u16: bool,
-                       emit_blur: bool = False):
+                       emit_blur: bool = False, row_off: torch.Tensor | None = None,
+                       global_h: int | None = None):
     """Plain PyTorch version of ``front_kernel`` (same outputs)."""
     lf, l8 = raw_luma(raw_p, channels, u16)
-    blur, tile_min = _blur_and_tile_min(lf, sigma, true_shape)
+    blur, tile_min = _blur_and_tile_min(lf, sigma, true_shape, row_off, global_h)
     l8 = l8[:, 8:-8].contiguous()
     if emit_blur:
         return blur.contiguous(), l8, tile_min
@@ -155,12 +170,14 @@ def pad_half(half: torch.Tensor) -> torch.Tensor:
 
 def front_kernel_decimate_plain(raw_p: torch.Tensor, sigma: float,
                                 true_shape: tuple[int, int], channels: int,
-                                u16: bool):
+                                u16: bool, row_off: torch.Tensor | None = None,
+                                global_h: int | None = None):
     """Plain PyTorch version of ``front_kernel_decimate`` (same outputs)."""
     h, w = true_shape
     lf, l8 = raw_luma(raw_p, channels, u16)
     half_p = pad_half(decimate2(lf[:, 8 : 8 + h, :w]))
-    tile_min = _response_tile_min(half_p, sigma, (h // 2, w // 2))
+    rows = () if row_off is None else (row_off, global_h, _WINDOW_INSET)
+    tile_min = _response_tile_min(half_p, sigma, (h // 2, w // 2), *rows)
     return l8[:, 8:-8].contiguous(), half_p, tile_min
 
 
@@ -193,9 +210,26 @@ def check_raw(raw_p: torch.Tensor, channels: int, u16: bool, name: str,
         raise ValueError(f"{name}: raw_p shape {tuple(raw_p.shape)} is not a pad_raw layout")
 
 
+def check_rows(row_off, global_h, b: int, dev, name: str):
+    """The row-sharding arguments' contract shared by the kernel wrappers:
+    ``row_off`` (B,) int32 on the frames' device comes with ``global_h``
+    (alone it would be ignored); ``global_h`` alone means offsets 0.
+    Returns the offsets, or None without row sharding."""
+    if global_h is None:
+        if row_off is not None:
+            raise ValueError(f"{name}: row_off without global_h would be ignored")
+        return None
+    if row_off is None:
+        return torch.zeros(b, dtype=torch.int32, device=dev)
+    if row_off.shape != (b,) or row_off.dtype != torch.int32 or row_off.device != dev:
+        raise ValueError(f"{name}: row_off must be (B,) int32 on the frames' device")
+    return row_off
+
+
 def front_kernel(raw_p: torch.Tensor, sigma: float,
                  true_shape: tuple[int, int], channels: int, u16: bool,
-                 emit_blur: bool = False):
+                 emit_blur: bool = False, row_off: torch.Tensor | None = None,
+                 global_h: int | None = None):
     """(B, Hp+16, Wp*C) pad_raw output -> (luma8 (B, Hp, Wp) u8,
     tile_min (B, Hp/64) f32): image-crate gray, 7-tap clamped Gaussian
     blur and the Hessian response with the image border zeroed, reduced
@@ -204,12 +238,20 @@ def front_kernel(raw_p: torch.Tensor, sigma: float,
 
     With ``emit_blur`` the outputs are (blur_p (B, Hp, Wp) f32, luma8,
     tile_min): the blur of the whole padded plane (the padding blurs the
-    frame's replicated edge pixels), which ``cluster_rochade`` reads."""
+    frame's replicated edge pixels), which ``cluster_rochade`` reads.
+
+    Row sharding: with ``row_off`` (B,) int32 and ``global_h``, frame i is
+    a window whose row r is row r + row_off[i] of a ``global_h``-row frame;
+    the response border is that frame's, and the window's rows from h on
+    are zeroed too (the counterpart of ``front_kernel``'s
+    ``row_off``/``global_h``)."""
     check_raw(raw_p, channels, u16, "front_kernel")
-    if raw_p.device.type == "cpu":
-        return front_kernel_plain(raw_p, sigma, true_shape, channels, u16, emit_blur)
-    require_cuda(raw_p, "front_kernel")
     h, w = true_shape
+    row_off = check_rows(row_off, global_h, raw_p.shape[0], raw_p.device, "front_kernel")
+    if raw_p.device.type == "cpu":
+        return front_kernel_plain(raw_p, sigma, true_shape, channels, u16, emit_blur,
+                                  row_off, global_h)
+    require_cuda(raw_p, "front_kernel")
     b, rows, _ = raw_p.shape
     h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
     taps = _taps(sigma)
@@ -222,19 +264,25 @@ def front_kernel(raw_p: torch.Tensor, sigma: float,
     )
     err = lib().ag_front_kernel(
         raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
-        ctypes.addressof(taps), luma8.data_ptr(),
+        ctypes.addressof(taps), None if row_off is None else row_off.data_ptr(),
+        h if row_off is None else global_h, luma8.data_ptr(),
         blur.data_ptr() if emit_blur else None, strip_min.data_ptr(),
         stream_of(raw_p),
     )
     check(err, "front_kernel")
-    LAUNCHES["front_kernel[emit_blur]" if emit_blur else "front_kernel"] += 1
+    if row_off is not None:
+        LAUNCHES["front_kernel[row_off]"] += 1
+    else:
+        LAUNCHES["front_kernel[emit_blur]" if emit_blur else "front_kernel"] += 1
     if emit_blur:
         return blur, luma8, strip_min.amin(-1)
     return luma8, strip_min.amin(-1)
 
 
 def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
-                          true_shape: tuple[int, int], channels: int, u16: bool):
+                          true_shape: tuple[int, int], channels: int, u16: bool,
+                          row_off: torch.Tensor | None = None,
+                          global_h: int | None = None):
     """(B, Hp+16, Wp*C) pad_raw output -> (luma8 (B, Hp, Wp) u8, half_p
     (B, Hhp+16, Whp) f32, tile_min (B, Hhp/64) f32): the turbo front-end.
 
@@ -249,13 +297,23 @@ def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
     luma_f32=True)`` and ``nms_extract_raw``. ``tile_min`` holds the
     Hessian-response minima of the blurred half plane per 64 half rows,
     with the half image's one-pixel border zeroed; the global minimum
-    times the response ratio is the turbo threshold."""
+    times the response ratio is the turbo threshold.
+
+    Row sharding: ``row_off`` (B,) int32 and ``global_h`` count HALF rows;
+    half row r of frame i is half row r + row_off[i] of a ``global_h``-row
+    half frame, whose border is zeroed in the minima, as are the window's
+    first and last 4 half rows (they blur into its replicated edge rows;
+    the neighbouring window holds them). The half plane is the window's
+    own, its edges replicated as without row sharding."""
     check_raw(raw_p, channels, u16, "front_kernel_decimate")
     h, w = true_shape
     if h < 2 or w < 2:
         raise ValueError(f"front_kernel_decimate: a {h}x{w} frame has no half plane")
+    row_off = check_rows(row_off, global_h, raw_p.shape[0], raw_p.device,
+                         "front_kernel_decimate")
     if raw_p.device.type == "cpu":
-        return front_kernel_decimate_plain(raw_p, sigma, true_shape, channels, u16)
+        return front_kernel_decimate_plain(raw_p, sigma, true_shape, channels, u16,
+                                           row_off, global_h)
     require_cuda(raw_p, "front_kernel_decimate")
     b, rows, _ = raw_p.shape
     h_pad, w_pad = rows - 16, raw_p.shape[2] // channels
@@ -270,11 +328,13 @@ def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
     )
     err = lib().ag_front_kernel_decimate(
         raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
-        ctypes.addressof(taps), luma8.data_ptr(), half_p.data_ptr(),
+        ctypes.addressof(taps), None if row_off is None else row_off.data_ptr(),
+        h // 2 if row_off is None else global_h, luma8.data_ptr(), half_p.data_ptr(),
         hh_pad, wh_pad, strip_min.data_ptr(), stream_of(raw_p),
     )
     check(err, "front_kernel_decimate")
-    LAUNCHES["front_kernel_decimate"] += 1
+    LAUNCHES["front_kernel_decimate[row_off]" if row_off is not None
+             else "front_kernel_decimate"] += 1
     return luma8, half_p, strip_min.amin(-1)
 
 

@@ -127,19 +127,25 @@ def _first_nonzero(flags: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 
 
 def component_centroids_bounded(mask: torch.Tensor, lab: torch.Tensor,
-                                max_clusters: int, max_masked: int) -> Clusters:
+                                max_clusters: int, max_masked: int,
+                                row_range: tuple[int, int] | None = None) -> Clusters:
     """Per-component centroids from (B, H, W) labels at fixed capacities,
     in ascending root order: the first ``max_clusters`` roots get a slot,
     and only the first ``max_masked`` masked pixels (scan order)
     contribute — a pixel whose root has no slot is dropped. The sums are
     integers, converted to f32 for the divide (equal to f32 accumulation
-    while a sum stays below 2^24)."""
+    while a sum stays below 2^24). ``row_range=(lo, hi)`` keeps only the
+    components whose root row lies in [lo, hi): a row-sharded window
+    claims the blobs whose root (topmost pixel) is in its own band."""
     b, h, w = mask.shape
     hw = h * w
     dev = mask.device
     flat_mask = mask.reshape(b, hw)
     flat_lab = lab.reshape(b, hw).to(torch.int64)
-    root = flat_mask & (flat_lab == torch.arange(hw, device=dev))
+    idx = torch.arange(hw, device=dev)
+    root = flat_mask & (flat_lab == idx)
+    if row_range is not None:
+        root &= (idx // w >= row_range[0]) & (idx // w < row_range[1])
     root_idx = _first_nonzero(root, max_clusters, hw)
     masked_idx = _first_nonzero(flat_mask, max_masked, hw)
     pixel_valid = masked_idx < hw

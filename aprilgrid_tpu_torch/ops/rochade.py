@@ -254,18 +254,27 @@ def rochade_refine(
     centers_valid: torch.Tensor,
     half_patch: int = 2,
     move_threshold: float = 1.0,
+    global_bounds: tuple[int, int] | None = None,
 ) -> Saddles:
     """Refine all candidate corners at once (src/detector.rs:194-361):
-    centers (K, 2) on one (H, W) blur plane, or (B, K, 2) on (B, H, W)."""
+    centers (K, 2) on one (H, W) blur plane, or (B, K, 2) on (B, H, W).
+
+    ``global_bounds=(true_h, row_off)``: ``blur`` is a row-sharded window
+    whose row r is row r + row_off of a ``true_h``-row image. The bounds
+    gate then holds in the image's rows too, and y comes out in them —
+    added to the rounded row before the offset, as the whole image's
+    refine adds it."""
     hp2 = 2 * half_patch
     h, w = blur.shape[-2:]
     rx = rust_round(centers[..., 0]).to(torch.int64)
     ry = rust_round(centers[..., 1]).to(torch.int64)
+    true_h, row_off = (h, 0) if global_bounds is None else global_bounds
     in_bounds = (
-        (ry - hp2 >= 0) & (ry + hp2 < h) & (rx - hp2 >= 0) & (rx + hp2 < w)
+        (ry - hp2 >= 0) & (ry + hp2 < h) & (ry + row_off - hp2 >= 0)
+        & (ry + row_off + hp2 < true_h) & (rx - hp2 >= 0) & (rx + hp2 < w)
     ) & centers_valid
     patch = gather_patches(blur, rx, ry, half_patch)
-    return refine_patches(patch, rx, ry, in_bounds, half_patch, move_threshold)
+    return refine_patches(patch, rx, ry + row_off, in_bounds, half_patch, move_threshold)
 
 
 def refine_at_raw(

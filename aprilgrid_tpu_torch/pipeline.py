@@ -167,6 +167,15 @@ def _resolve_nms(nms: bool | None) -> bool:
     return _turbo_nms_env() == "1"
 
 
+def _nms_merge() -> int:
+    """Sweeps of the NMS kernel's geodesic peak merge, from the environment
+    variable ``AG_NMS_MERGE`` (default 0, clamped to 0-8): it collapses a
+    response blob's duplicate peaks onto the first in scan order, so fewer
+    candidates reach the board search. The JAX package's policy
+    (``pipeline.py::_nms_merge``), read the same way."""
+    return max(0, min(8, int(os.environ.get("AG_NMS_MERGE", "0"))))
+
+
 def _gated(saddles: Saddles, params, consts, caps) -> Saddles:
     return filter_and_compact(
         saddles,
@@ -202,7 +211,8 @@ def decimated_frontend_batch(
     within 0.1 px of the oracle (tests/test_torch_decimate.py); smaller
     frames lose recall, so the facade's ``"auto"`` engages it at >= 2 MP
     only. The second counter is peaks beyond the candidate capacity for
-    the NMS variant and 0 for the drain."""
+    the NMS variant and 0 for the drain. The NMS variant runs the peak merge
+    that ``AG_NMS_MERGE`` asks for (``_nms_merge``)."""
     h, w = int(imgs.shape[1]), int(imgs.shape[2])
     raw_p, _, _, channels, u16 = pad_raw(imgs)
     luma8, half_p, tile_min = front_kernel_decimate(
@@ -212,7 +222,7 @@ def decimated_frontend_batch(
     kw = dict(sigma=consts.blur_sigma, hp2=2 * consts.rochade_half_patch,
               move_thr=consts.rochade_move_threshold)
     if _resolve_nms(nms):
-        cells = nms_extract_raw(half_p, thr, h // 2, w // 2, **kw)
+        cells = nms_extract_raw(half_p, thr, h // 2, w // 2, merge=_nms_merge(), **kw)
         fields, n_peaks = cells_to_fields(cells, _CAPF)
         counts = torch.stack(
             [n_peaks.clamp(max=float(_CAPF)), (n_peaks - float(_CAPF)).clamp(min=0.0)],

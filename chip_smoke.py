@@ -73,9 +73,22 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
 6. a line with the cluster entries' per-launch split, then one JSON line
-   with each kernel's launches in phases 3-5 (counted per path: zeroed
-   before it, read after it), its error against the plain version, its
-   time, the plain version's time and its bound.
+   with each kernel's launches in phases 3-5 and 7 (counted per path:
+   zeroed before it, read after it), its error against the plain version,
+   its time, the plain version's time and its bound (and, for phase 7's
+   rows, its device ms by torch.profiler);
+7. (printed before 6) the NMS kernel's peak merge at m4 and m8 bit-equal to its
+   plain version on the four images' half planes at batch 32, with the
+   device split of m0/m4/m8, then ``detect_batch`` in the turbo NMS mode
+   with ``AG_NMS_MERGE=8`` on the 1080p images against the CPU run (the
+   merge's path); each kernel's row-sharding mode (``row_off``,
+   ``global_h``) bit-equal to its plain version on the windows the
+   row-sharded front-ends cut from each image (RGB as its u8 luma) and
+   from the 4K frame of ``tools/bench_4k.py`` (u8 and x257 u16), timed on
+   one shard's window; the row-sharded front-ends on that frame with all
+   shards on this card (exact at 2 and 4 shards, turbo at 2 and 3 with the
+   drain, at 2 with the NMS at m0 and m8), slot for slot bit-equal to the
+   single-device front-end (their path), and their ms a frame.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -88,7 +101,8 @@ front kernel; ``--decimate-only`` runs the decimating front kernel's
 synthetic check and ``phase_decimate_split``, for work on that kernel;
 ``--decode-only`` runs the decode kernels' checks and
 ``phase_decode_split``, for work on the decode; ``--runtime-only`` runs
-``phase_runtime``, for work on the facade's runtime).
+``phase_runtime``, for work on the facade's runtime; ``--sharded-only``
+runs phase 7, for work on the merge and the row sharding).
 """
 
 from __future__ import annotations
@@ -725,7 +739,7 @@ def _profile_split(calls: dict, iters: int = 10) -> dict:
         for ev in prof.key_averages():
             if "CUDA" not in str(getattr(ev, "device_type", "")):
                 continue   # a host-side operator: its kernels are listed themselves
-            mine = re.search(r"(\w+_kernel(?:<\d+>)?)\(", ev.key)
+            mine = re.search(r"(\w+_kernel(?:<\w+>)?)\(", ev.key)
             if mine and "at::" not in ev.key:
                 own[mine.group(1)] = ev.device_time_total / ev.count / 1e3
             else:
@@ -2177,6 +2191,435 @@ def phase_plane_path(card: str, batch: int) -> dict:
     return launches
 
 
+# -- phase 7: the peak merge and the row-sharding modes ---------------------
+
+SHARDS_EXACT = (2, 4)   # shard counts of the sharded front-ends on the 4K frame
+SHARDS_TURBO = (2, 3)
+
+
+def frame_4k(u16: bool = False):
+    """tools/bench_4k.py's 4K frame on the card: two_boards at the centre
+    of a 2160 x 3840 grey (128) canvas, as the image crate's u8 luma, or
+    that times 257 as u16 (the sharded front-ends take one channel)."""
+    import torch
+
+    from aprilgrid_tpu_torch.ops.gray import to_luma
+
+    canvas = np.full((2160, 3840, 3), 128, np.uint8)
+    canvas[540:1620, 960:2880] = read_png(DATA / "two_boards.png")
+    l8 = to_luma(torch.from_numpy(canvas).to("cuda"))[1].reshape(2160, 3840)
+    return (l8.to(torch.int32) * 257).to(torch.int16).view(torch.uint16) if u16 else l8
+
+
+def _gray(img):
+    """A golden image on the card as one channel: RGB as the image crate's
+    u8 luma, gray as it is."""
+    import torch
+
+    from aprilgrid_tpu_torch.ops.gray import to_luma
+
+    t = torch.from_numpy(img).to("cuda")
+    return to_luma(t)[1].reshape(img.shape[:2]) if img.ndim == 3 else t
+
+
+def _fit_work(lf, thr: float, h: int, w: int, margin: int) -> dict:
+    """What the data asks of the cluster and NMS kernels on frame 0 of an
+    f32 luma plane in the padded layout (thr its threshold): components of
+    the mask (roots), masked pixels inside the ``margin`` (a fit each), the
+    64 x 64 tiles that hold one, and the pixels of those tiles together
+    with the 8 pixels around them (the reach of an 8-sweep peak merge):
+    a halo pixel counts once, and not where a neighbouring tile holds a
+    fit itself."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.ops.cluster import label_components
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+
+    resp = hessian_response(gaussian_blur(lf[0, 8 : 8 + h, :w], CONSTANTS.blur_sigma))
+    mask = torch.zeros_like(resp, dtype=torch.bool)
+    mask[1:-1, 1:-1] = resp[1:-1, 1:-1] < thr
+    lab = label_components(mask)
+    roots = int((mask & (lab == torch.arange(h * w, device=lf.device).reshape(h, w))).sum())
+    fit = torch.zeros_like(mask)
+    fit[margin:-margin, margin:-margin] = mask[margin:-margin, margin:-margin]
+    hp, wp = lf.shape[1] - 16, lf.shape[2]
+    tiles = torch.nn.functional.pad(fit, (0, wp - w, 0, hp - h))
+    tiles = tiles.reshape(hp // 64, 64, wp // 64, 64).any(3).any(1)
+    tile_px = tiles.repeat_interleave(64, 0).repeat_interleave(64, 1).to(torch.float32)
+    reach = torch.nn.functional.max_pool2d(tile_px[None, None], 17, 1, 8)[0, 0]
+    return dict(roots=roots, fits=int(fit.sum()), fit_tiles=int(tiles.sum()),
+                merge_px=int((reach > 0).sum()))
+
+
+def _device_ms(split: dict) -> float:
+    """Device ms of one call from its ``_profile_split`` entry: its kernels,
+    one launch each, and the PyTorch operations its wrapper enqueues."""
+    return sum(v if k != "at::" else v["ms"] for k, v in split.items())
+
+
+def _nms_ops(batch: int, hpx: int, fits: int, fit_tiles: int, merge: int = 0,
+             merge_px: int = 0) -> float:
+    """Operations of ``nms_extract_raw`` for this run's data: the stencil,
+    the tile form of the record gate at every pixel of a tile that holds a
+    fit, per fit its rows of taps and the closed form plus 49 compares per
+    pass of the peak window; with the merge, per pass of a sweep a compare
+    and a select at each pixel a key can come from (``merge_px``: the
+    tiles that hold a fit and the halo around them, each pixel once)."""
+    from aprilgrid_tpu_torch.ops.rochade import fit_taps
+
+    cone, fits_t = fit_taps(2)
+    tile_ops = 2.0 * len(cone)
+    row_ops = 2.0 * sum(5 * len(vt) + len(ht) for _, vt, ht in fits_t) + 30.0
+    merge_ops = merge_px * 4 * merge * 2.0
+    return STENCIL_OPS * hpx + batch * (fit_tiles * 4096 * tile_ops
+                                        + fits * (row_ops + 98) + merge_ops)
+
+
+def merge_checks(card: str, batch: int, rec: dict) -> None:
+    """``nms_extract_raw`` with the peak merge at m4 and m8 bit-equal to its
+    plain version on the four goldens' half planes at ``batch``; the peaks
+    a frame keeps at m0/m4/m8; two_boards at m8 timed."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate, pad_raw
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
+
+    sigma = CONSTANTS.blur_sigma
+    for name in GOLDEN:
+        img = torch.from_numpy(read_png(DATA / f"{name}.png")).to("cuda")
+        frames = img[None].expand(batch, *img.shape).contiguous()
+        raw_p, h, w, ch, u16 = pad_raw(frames)
+        hh, wh = h // 2, w // 2
+        _, half_p, tmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
+        thr = tmin.amin(-1) * CONSTANTS.response_threshold_ratio
+        peaks = {}
+        for m in (0, 4, 8):
+            nargs = (half_p, thr, hh, wh, sigma, 4, 1.0, m)
+            cells = nms_extract_raw(*nargs)
+            peaks[m] = int((cells[0, 5] > 0.5).sum())
+            if not m:
+                continue
+            pcells = nms_extract_raw_plain(*nargs)
+            torch.cuda.synchronize()
+            if not torch.equal(cells, pcells):
+                raise AssertionError(
+                    f"nms_extract_raw merge={m} {name}: {int((cells[:, 5] > 0.5).sum())} vs "
+                    f"{int((pcells[:, 5] > 0.5).sum())} peaks, max |diff| "
+                    f"{(cells - pcells).abs().max().item()}")
+        print(f"kernels nms_extract_raw[merge] {name} b{batch}: m4, m8 bit-equal to the "
+              f"plain version; peaks/frame m0/m4/m8 {peaks[0]}/{peaks[4]}/{peaks[8]}",
+              flush=True)
+        if name == "two_boards":
+            work = _fit_work(half_p, float(thr[0]), hh, wh, 4)
+            hpx = batch * (half_p.shape[1] - 16) * half_p.shape[2]
+            nbytes = sum(t.numel() * t.element_size() for t in (half_p, thr, cells))
+            split = _profile_split({f"m{m}": (lambda m=m: nms_extract_raw(
+                half_p, thr, hh, wh, merge=m)) for m in (0, 4, 8)})
+            print(f"split nms_extract_raw two_boards b{batch}, device ms per launch: "
+                  f"{json.dumps(split)}", flush=True)
+            rec["merge"] = dict(
+                err=0.0, ms=_ms(lambda: nms_extract_raw(*nargs), 10),
+                plain_ms=_ms(lambda: nms_extract_raw_plain(*nargs), 1),
+                bound=_bound_ms(nbytes, _nms_ops(batch, hpx, work["fits"],
+                                                 work["fit_tiles"], 8, work["merge_px"])),
+                peaks=peaks, device_ms=_device_ms(split["m8"]),
+            )
+            print(f"time nms_extract_raw two_boards b{batch}: m0 "
+                  f"{_ms(lambda: nms_extract_raw(half_p, thr, hh, wh), 10):.4f} ms, m4 "
+                  f"{_ms(lambda: nms_extract_raw(half_p, thr, hh, wh, merge=4), 10):.4f} ms, "
+                  f"m8 {rec['merge']['ms']:.4f} ms [{card}]", flush=True)
+
+
+def _cluster_diff(f, c, pf, pc, label: str, tol: float) -> float:
+    """The cluster kernel's rows against the plain version's after the
+    label sort: counts, ok and labels equal, the rest within ``tol``."""
+    import torch
+
+    from aprilgrid_tpu_torch.kernels.cluster import sort_candidates
+
+    (sf, _), (spf, _) = sort_candidates(f), sort_candidates(pf)
+    err = (sf[..., :6] - spf[..., :6]).abs().max().item()
+    if not (torch.equal(c, pc) and torch.equal(sf[..., 6:8], spf[..., 6:8])) or err > tol:
+        raise AssertionError(f"{label}: counts {c[:, 0].tolist()} vs {pc[:, 0].tolist()}, "
+                             f"record diff {err}")
+    return err
+
+
+def row_off_checks(name: str, frame, timed: bool = False) -> dict:
+    """Each kernel's row-sharding mode against its plain version on the
+    windows the sharded front-ends give it for ``frame`` (one channel, on
+    the card) cut into two bands: front_kernel and cluster_rochade_raw on
+    the exact path's windows, front_kernel_decimate,
+    cluster_rochade_raw(luma_f32) and nms_extract_raw (m0 and m8) on the
+    turbo path's. Returns the NMS mode's launches in those checks (its
+    only caller: the sharded front-ends extract with the drain) and, with
+    ``timed``, each mode on one shard's window (batch 1, as the front-ends
+    call it): ms, plain ms, bound."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        cluster_rochade_raw,
+        cluster_rochade_raw_plain,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import (
+        front_kernel,
+        front_kernel_decimate,
+        front_kernel_decimate_plain,
+        front_kernel_plain,
+        raw_luma,
+    )
+    from aprilgrid_tpu_torch.kernels import LAUNCHES
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
+    from aprilgrid_tpu_torch.parallel.sharding import row_windows
+
+    sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
+    u16 = frame.dtype == torch.uint16
+    w = frame.shape[1]
+    rec = {}
+
+    def held(fn, plain, same):
+        out, pout = fn(), plain()
+        torch.cuda.synchronize()
+        return out, same(out, pout)
+
+    def equal(label):
+        def same(a, b):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{label} {name}: differs from the plain version")
+            return 0.0
+        return same
+
+    wins, roff, lh, gh = row_windows(frame, 2)
+    rows = dict(row_off=roff, global_h=gh)
+    fargs = (wins, sigma, (lh, w), 1, u16)
+    (_, tmin), _ = held(lambda: front_kernel(*fargs, **rows),
+                        lambda: front_kernel_plain(*fargs, **rows), equal("front_kernel[row_off]"))
+    thr = (tmin.amin() * ratio).expand(2).contiguous()
+    cargs = (wins, thr, lh, w, 1, u16)
+    _, cerr = held(lambda: cluster_rochade_raw(*cargs, **rows),
+                   lambda: cluster_rochade_raw_plain(*cargs, **rows),
+                   lambda a, b: _cluster_diff(*a, *b, f"cluster_rochade_raw[row_off] {name}",
+                                              1e-4))
+    twins, troff, tlh, tgh = row_windows(frame, 2, turbo=True)
+    trows = dict(row_off=troff, global_h=tgh)
+    dargs = (twins, sigma, (tlh, w), 1, u16)
+    (_, half_p, htmin), _ = held(
+        lambda: front_kernel_decimate(*dargs, **trows),
+        lambda: front_kernel_decimate_plain(*dargs, **trows),
+        equal("front_kernel_decimate[row_off]"))
+    hthr = (htmin.amin() * ratio).expand(2).contiguous()
+    hh, wh = tlh // 2, w // 2
+    fargs32 = (half_p, hthr, hh, wh, 1, False, sigma, 4, 1.0, True)
+    _, ferr = held(lambda: cluster_rochade_raw(*fargs32, **trows),
+                   lambda: cluster_rochade_raw_plain(*fargs32, **trows),
+                   lambda a, b: _cluster_diff(*a, *b,
+                                              f"cluster_rochade_raw[luma_f32,row_off] {name}", 0.0))
+    peaks, nms0 = [], LAUNCHES["nms_extract_raw[row_off]"]
+    for m in (0, 8):
+        nargs = (half_p, hthr, hh, wh, sigma, 4, 1.0, m)
+        cells, _ = held(lambda: nms_extract_raw(*nargs, **trows),
+                        lambda: nms_extract_raw_plain(*nargs, **trows),
+                        lambda a, b: equal(f"nms_extract_raw[row_off] m{m}")((a,), (b,)))
+        peaks.append(int((cells[:, 5] > 0.5).sum()))
+    rec["nms_row_off_launches"] = LAUNCHES["nms_extract_raw[row_off]"] - nms0
+    print(f"kernels row_off {name} {tuple(frame.shape)} {frame.dtype}, windows of 2 bands: "
+          f"front, cluster (max |diff| {cerr}), front_decimate, cluster[luma_f32], nms m0/m8 "
+          f"({peaks[0]}/{peaks[1]} peaks) bit-equal to their plain versions", flush=True)
+    if not timed:
+        return rec
+
+    # one shard's window (shard 1), batch 1, as the front-ends call the kernels
+    one = lambda t: t[1:2].contiguous()  # noqa: E731
+    nbytes = lambda *ts: float(sum(t.numel() * t.element_size() for t in ts))  # noqa: E731
+    r1, tr1 = dict(row_off=one(roff), global_h=gh), dict(row_off=one(troff), global_h=tgh)
+    win, twin, hp1 = one(wins), one(twins), one(half_p)
+    px = (win.shape[1] - 16) * win.shape[2]
+    hpx = (hp1.shape[1] - 16) * hp1.shape[2]
+    lf, _ = raw_luma(win, 1, u16)
+    work = _fit_work(lf, float(thr[0]), lh, w, 2)
+    hwork = _fit_work(hp1, float(hthr[0]), hh, wh, 4)
+    dense = (5.0 + STENCIL_OPS) * px
+    f1 = dict(a=(win, sigma, (lh, w), 1, u16), k=r1)
+    c1 = dict(a=(win, thr[:1], lh, w, 1, u16), k=r1)
+    d1 = dict(a=(twin, sigma, (tlh, w), 1, u16), k=tr1)
+    g1 = dict(a=(hp1, hthr[:1], hh, wh, 1, False, sigma, 4, 1.0, True), k=tr1)
+    n1 = dict(a=(hp1, hthr[:1], hh, wh, sigma, 4, 1.0, 0), k=tr1)
+    cl_out = cluster_rochade_raw(*c1["a"], **c1["k"])
+    g_out = cluster_rochade_raw(*g1["a"], **g1["k"])
+    d_out = front_kernel_decimate(*d1["a"], **d1["k"])
+    n_out = nms_extract_raw(*n1["a"], **n1["k"])
+    table = {
+        "front_row_off": (front_kernel, front_kernel_plain, f1, 0.0,
+                          _bound_ms(nbytes(win) + px + 4.0 * px / 4096, dense)),
+        "cluster_row_off": (cluster_rochade_raw, cluster_rochade_raw_plain, c1, cerr,
+                            _bound_ms(nbytes(win, thr[:1], *cl_out),
+                                      dense + work["roots"] * FIT_OPS)),
+        "decimate_row_off": (front_kernel_decimate, front_kernel_decimate_plain, d1, 0.0,
+                             _bound_ms(nbytes(twin, *d_out),
+                                       11.0 * (twin.shape[1] - 16) * twin.shape[2]
+                                       + STENCIL_OPS * hpx)),
+        "cluster_f32_row_off": (cluster_rochade_raw, cluster_rochade_raw_plain, g1, ferr,
+                                _bound_ms(nbytes(hp1, hthr[:1], *g_out),
+                                          STENCIL_OPS * hpx + hwork["roots"] * FIT_OPS)),
+        "nms_row_off": (nms_extract_raw, nms_extract_raw_plain, n1, 0.0,
+                        _bound_ms(nbytes(hp1, hthr[:1], n_out),
+                                  _nms_ops(1, hpx, hwork["fits"], hwork["fit_tiles"]))),
+    }
+    calls = {key: (lambda fn=fn, c=c: fn(*c["a"], **c["k"]))
+             for key, (fn, _, c, _, _) in table.items()}
+    split = _profile_split(calls)
+    for key, (fn, plain, c, err, bound) in table.items():
+        rec[key] = dict(err=err, ms=_ms(calls[key], 20),
+                        plain_ms=_ms(lambda: plain(*c["a"], **c["k"]), 1), bound=bound,
+                        device_ms=_device_ms(split[key]))
+    print(f"split row_off modes, one shard's window of {name} (batch 1), device ms per "
+          f"launch: {json.dumps(split)}", flush=True)
+    return rec
+
+
+def sharded_frontends(card: str) -> dict:
+    """The row-sharded front-ends on the 4K frame, u8 and u16, with every
+    shard on this card (``[cuda:0] * n``): the exact one at 2 and 4 shards,
+    the turbo one at 2 and 3, each bit-equal, slot for slot, to the
+    single-device front-end on the card. Returns the launches of the held
+    runs (counted from 0 before them); then ms per call of each, and of the
+    single-device front-end, as a record (one card shows no scaling)."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.ops.rochade import Saddles
+    from aprilgrid_tpu_torch.parallel.sharding import (
+        make_mesh,
+        saddle_frontend_rows_sharded_kernels,
+        saddle_frontend_rows_sharded_kernels_turbo,
+    )
+    from aprilgrid_tpu_torch.pipeline import decimated_frontend_batch, saddle_frontend_batch
+
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    dev = torch.device("cuda", 0)
+    first = lambda s: Saddles(*(t[0] for t in s))  # noqa: E731
+    single = lambda f: first(saddle_frontend_batch(f[None], *cfg)[0])  # noqa: E731
+    tsingle = lambda f: first(  # noqa: E731
+        decimated_frontend_batch(f[None], *cfg, nms=False)[0])
+    runs = []   # (label, sharded fn, single-device fn, frame)
+    for u16 in (False, True):
+        frame = frame_4k(u16)
+        kind = "u16" if u16 else "u8"
+        for n in SHARDS_EXACT:
+            mesh = make_mesh({"sp": n}, [dev] * n)
+            runs.append((f"exact {kind} {n} shards",
+                         saddle_frontend_rows_sharded_kernels(mesh, *cfg), single, frame))
+        for n in SHARDS_TURBO:
+            mesh = make_mesh({"sp": n}, [dev] * n)
+            runs.append((f"turbo {kind} {n} shards",
+                         saddle_frontend_rows_sharded_kernels_turbo(mesh, *cfg), tsingle, frame))
+    refs = {}
+    for label, fn, single, frame in runs:   # warm-up, references
+        fn(frame)
+        refs[label] = single(frame)
+    torch.cuda.synchronize()
+    reset_launches()
+    for label, fn, single, frame in runs:
+        got = fn(frame)
+        want = refs[label]
+        bad = [k for k in Saddles._fields if not torch.equal(getattr(got, k), getattr(want, k))]
+        if bad or got.p.device.type != dev.type:
+            raise AssertionError(f"sharded {label} 4K: {bad} differ from the single device")
+        print(f"sharded {label} 4K: {int(got.valid.sum())} saddles, bit-equal to the "
+              "single-device front-end slot for slot", flush=True)
+    keys = ("front_kernel[row_off]", "cluster_rochade_raw[row_off]",
+            "front_kernel_decimate[row_off]", "cluster_rochade_raw[luma_f32,row_off]",
+            "sparse_refine_raw")
+    launches = {k: LAUNCHES[k] for k in keys}
+    print(f"launches sharded front-ends: {json.dumps(launches)}", flush=True)
+    for label, fn, single, frame in runs:
+        ms, sms = _ms(lambda: fn(frame), 3), _ms(lambda: single(frame), 3)
+        print(f"time sharded {label} 4K: {ms:.3f} ms per frame, single device {sms:.3f} ms "
+              f"(shards one after another on one card) [{card}]", flush=True)
+    return launches
+
+
+def merge_end_to_end(card: str, batch: int) -> dict:
+    """``detect_batch`` in the turbo mode with the NMS extraction and
+    ``AG_NMS_MERGE=8`` on iphone and two_boards at ``batch``, held against
+    the port's CPU run under the same setting (golden counts, ID sets,
+    corners). Returns the launches of ``nms_extract_raw[merge]`` in the
+    held runs."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    imgs = {n: read_png(DATA / f"{n}.png") for n in TURBO}
+    with _env(AG_TURBO_NMS="1", AG_NMS_MERGE="8"):
+        gpu = TagDetector("t36h11", device="cuda", decimate=True)
+        cpu = TagDetector("t36h11", device="cpu", decimate=True)
+        refs = {n: cpu.detect(img) for n, img in imgs.items()}
+        for img in imgs.values():
+            gpu.detect_batch(np.stack([img] * batch))   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        for n, img in imgs.items():
+            _held_run(gpu, n, img, refs[n], batch, card, "turbo-nms-m8")
+        launches = {"nms_extract_raw[merge]": LAUNCHES["nms_extract_raw[merge]"],
+                    "nms_extract_raw": LAUNCHES["nms_extract_raw"]}
+    if launches["nms_extract_raw"]:
+        raise AssertionError("turbo-nms-m8: the merge-free NMS launch ran")
+    return launches
+
+
+def phase_sharded(card: str, batch: int) -> tuple[dict, dict]:
+    """Phase 7: the peak merge (kernel checks, then its path end to end),
+    the row-sharding modes on windows of every golden and of the 4K frame,
+    and the sharded front-ends on the 4K frame. Returns (launches on the
+    paths — the NMS row mode's from its checks on the turbo front-end's
+    windows, as nothing else calls it —, records of the six modes)."""
+    import torch
+
+    rec: dict = {}
+    merge_checks(card, batch, rec)
+    held = [row_off_checks(name, _gray(read_png(DATA / f"{name}.png"))) for name in GOLDEN]
+    held += [row_off_checks("4K", frame_4k(), timed=True),
+             row_off_checks("4K", frame_4k(u16=True))]
+    rec.update(held[-2])
+    launches = merge_end_to_end(card, batch)
+    launches.update(sharded_frontends(card))
+    launches["nms_extract_raw[row_off]"] = sum(r["nms_row_off_launches"] for r in held)
+    torch.cuda.synchronize()
+    return launches, rec
+
+
+def sharded_rows(launches: dict, rec: dict) -> list[dict]:
+    """The kernels line's rows of phase 7."""
+    csrc, jp = "aprilgrid_tpu_torch/csrc/", "aprilgrid_tpu/pallas/"
+    rows = [
+        ("nms_extract_raw[merge]", "nms.cu", "nms.py:211", "merge"),
+        ("front_kernel[row_off]", "frontend.cu", "frontend.py:357", "front_row_off"),
+        ("front_kernel_decimate[row_off]", "frontend.cu", "frontend.py:703",
+         "decimate_row_off"),
+        ("cluster_rochade_raw[row_off]", "cluster.cu", "cluster.py:933", "cluster_row_off"),
+        ("cluster_rochade_raw[luma_f32,row_off]", "cluster.cu", "cluster.py:933",
+         "cluster_f32_row_off"),
+        ("nms_extract_raw[row_off]", "nms.cu", "nms.py:305", "nms_row_off"),
+    ]
+    out = []
+    for name, src, replaces, key in rows:
+        n, r = launches[name], rec[key]
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        out.append({
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": jp + replaces,
+            "launches": n, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+            "device_ms": r["device_ms"],
+        })
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2201,6 +2644,10 @@ def main() -> int:
                     help="build, then only the hybrid runtime at batch 128: sync-debug "
                          "dispatches, every frame against the CPU run, bit-equal "
                          "schedules, timeline sums, frames/s, device busy")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build, then only phase 7: the peak merge bit-equal on the "
+                         "four images and end to end, the row-sharding modes on "
+                         "windows, the sharded front-ends on the 4K frame")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -2227,6 +2674,11 @@ def main() -> int:
         return 0
     if args.runtime_only:
         phase_runtime(card, batch=128)
+        return 0
+    if args.sharded_only:
+        _print_ptxas("nms.cu")
+        launches, srec = phase_sharded(card, batch=32)
+        print(json.dumps({"kernels": sharded_rows(launches, srec)}))
         return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
@@ -2257,6 +2709,7 @@ def main() -> int:
     launches.update(phase_split_chain(card, batch=32))
     for k, n in phase_plane_path(card, batch=32).items():
         launches[k] += n
+    sharded_launches, srec = phase_sharded(card, batch=32)
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
     jp = "aprilgrid_tpu/pallas/"
@@ -2309,6 +2762,7 @@ def main() -> int:
             kernels[-1].update(
                 launched_as=counter[name], standalone_ms=h["ms"],
                 standalone_plain_ms=h["plain_ms"], standalone_bound_ms=h["bound"][0])
+    kernels += sharded_rows(sharded_launches, srec)
     print(f"cluster split two_boards b32, device ms per launch [{card}]: "
           f"{json.dumps(split)}")
     print(json.dumps({"kernels": kernels}))

@@ -341,3 +341,54 @@ def test_candidate_rows_plain_is_the_uncut_plain_version():
     fields, counts = cluster_from_blur_plain(blur[None], t)
     assert counts.tolist() == [[1024.0, 0.0]]
     np.testing.assert_array_equal(fields[0].numpy(), rows[:1024].numpy())
+
+
+# ---- the row-sharding mode (row_off/global_h) ----------------------------
+
+
+def _claimed(fields, w, lo, hi):
+    """The accepted rows whose root row (label) lies in [lo, hi), by label."""
+    f = fields[fields[:, 6] > 0.5]
+    root_row = (f[:, 7].astype(np.int64) - 1) // w
+    f = f[(root_row >= lo) & (root_row < hi)]
+    return f[np.argsort(f[:, 7])]
+
+
+@pytest.mark.parametrize("luma_f32", [False, True], ids=["raw", "luma_f32"])
+def test_cluster_row_off_matches_jax(data_dir, luma_f32):
+    """The row-sharding mode on a frame cut into two bands (window 0 starts
+    48 rows above the frame, window 1 inside it), against the JAX kernel in
+    interpret mode on the same windows and threshold: on the rows each
+    window claims, the same accepted labels, x and the frame-row y within
+    1e-4 px. ``luma_f32``: the turbo path's half planes (half-row offsets),
+    the JAX kernel at its turbo window without its pre-filter."""
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate
+    from aprilgrid_tpu_torch.parallel.sharding import CTX, row_windows
+
+    img = R.load_image(str(data_dir / "EuRoC.png"))[:, :384]
+    wins, roff, local_h, gh = row_windows(torch.from_numpy(img), 2, turbo=luma_f32)
+    w, h = img.shape[1], local_h
+    jkw = {}
+    if luma_f32:
+        _, wins, tmin = front_kernel_decimate(wins, 1.5, (local_h, w), 1, False,
+                                              row_off=roff, global_h=gh)
+        w, h = w // 2, local_h // 2
+        jkw = dict(luma_f32=True, prefilter=False, win=160)
+    else:
+        tmin = front_kernel(wins, 1.5, (local_h, w), 1, False, row_off=roff, global_h=gh)[1]
+    thr = tmin.amin().expand(2) * CONSTANTS.response_threshold_ratio
+    f, _ = cluster_rochade_raw(wins, thr, h, w, luma_f32=luma_f32, row_off=roff, global_h=gh)
+    jf, _ = jpcl.cluster_rochade_raw(
+        jnp.asarray(wins.numpy()), jnp.asarray(thr.numpy()), h, w, channels=1,
+        u16=False, interpret=True, row_off=jnp.asarray(roff.numpy()), global_h=gh, **jkw,
+    )
+    band = gh // 2
+    for i in range(2):
+        got = _claimed(f[i].numpy(), w, CTX, CTX + band)
+        want = _claimed(np.asarray(jf)[i], w, CTX, CTX + band)
+        assert len(got) > 15
+        np.testing.assert_array_equal(got[:, 7], want[:, 7])
+        np.testing.assert_allclose(got[:, :2], want[:, :2], rtol=0, atol=1e-4)
+        # y counts the frame's rows: row r of window i is row r + roff[i]
+        lab_row = (got[:, 7].astype(np.int64) - 1) // w
+        assert np.abs(got[:, 1] - (lab_row + int(roff[i]))).max() < 30

@@ -22,7 +22,7 @@ from aprilgrid_tpu.ops import frontend as jfront
 from aprilgrid_tpu.ops import gray as jgray
 from aprilgrid_tpu.pallas import frontend as jpal
 from aprilgrid_tpu.pipeline import normalize_raw_batch as j_normalize
-from aprilgrid_tpu_torch.kernels.frontend import front_kernel, pad_raw
+from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate, pad_raw
 from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
 from aprilgrid_tpu_torch.ops.gray import to_luma
 from aprilgrid_tpu_torch.pipeline import normalize_raw_batch
@@ -386,3 +386,65 @@ def test_fma32_model_rounds_once():
         cands = [g, np.nextafter(g, np.float32(np.inf)), np.nextafter(g, np.float32(-np.inf))]
         dist = [abs(Fraction(float(v)) - exact) for v in cands]
         assert dist[0] <= min(dist[1:])
+
+
+# ---- the row-sharding mode (row_off/global_h) ----------------------------
+#
+# A frame cut into two bands, as the row-sharded front-ends cut it: window 0
+# starts above the frame (row offset -48, its top rows replicas of the
+# frame's first row), window 1 inside it (a positive offset). Both go to the
+# JAX kernel in interpret mode and to the plain version as one batch.
+
+
+def _windows(data_dir, turbo):
+    from aprilgrid_tpu_torch.parallel.sharding import row_windows
+
+    img = load_image(str(data_dir / "EuRoC.png"))[:, :384]
+    wins, roff, local_h, gh = row_windows(torch.from_numpy(img), 2, turbo=turbo)
+    assert roff[0] < 0 < roff[1]
+    return wins, roff, local_h, img.shape[1], gh
+
+
+def test_front_kernel_row_off_matches_jax(data_dir):
+    """luma8 equal to the JAX kernel's; tile minima within the documented
+    ulps of the response scale, with the frame's border and the rows past
+    the window's own zeroed as the JAX kernel zeroes them."""
+    wins, roff, local_h, w, gh = _windows(data_dir, turbo=False)
+    l8, tmin = front_kernel(wins, 1.5, (local_h, w), 1, False, row_off=roff, global_h=gh)
+    jl8, jtmin = jpal.front_kernel(
+        jnp.asarray(wins.numpy()), 1.5, interpret=True, emit_blur=False,
+        pre_padded=True, true_shape=(local_h, w), channels=1, u16=False,
+        row_off=jnp.asarray(roff.numpy()), global_h=gh,
+    )
+    np.testing.assert_array_equal(l8.numpy(), np.asarray(jl8))
+    jt = np.asarray(jtmin)[:, :, 0, 0]
+    scale = float(np.abs(jt).max())
+    np.testing.assert_allclose(tmin.numpy(), jt, rtol=0, atol=2e-6 * scale)
+    # the gates of the mode moved a minimum (the rows past the frame's end)
+    assert not torch.equal(tmin, front_kernel(wins, 1.5, (local_h, w), 1, False)[1])
+
+
+def test_front_kernel_decimate_row_off_matches_jax(data_dir):
+    """The decimating kernel on the turbo path's windows (half-row offsets,
+    edge rows alternated in window 0): luma8 equal to the JAX kernel's,
+    half planes within the documented 1.2e-7, half-resolution minima
+    (per 64 half rows here, per 32 there) within the documented ulps, the
+    frame's half border and the window's 4-row inset zeroed in both."""
+    wins, roff, local_h, w, gh = _windows(data_dir, turbo=True)
+    hh, wh = local_h // 2, w // 2
+    l8, half_p, tmin = front_kernel_decimate(wins, 1.5, (local_h, w), 1, False,
+                                             row_off=roff, global_h=gh)
+    jl8, jhalf, jtmin = (np.asarray(a) for a in jpal.front_kernel_decimate(
+        jnp.asarray(wins.numpy()), 1.5, pre_padded=True, true_shape=(local_h, w),
+        channels=1, u16=False, row_off=jnp.asarray(roff.numpy()), global_h=gh,
+        interpret=True,
+    ))
+    np.testing.assert_array_equal(l8.numpy(), jl8)
+    np.testing.assert_allclose(half_p.numpy()[:, : 8 + hh, :wh], jhalf[:, : 8 + hh, :wh],
+                               rtol=0, atol=1.2e-7)
+    jt = jtmin[:, :, 0, 0]
+    scale = float(np.abs(jt).max())
+    for j in range(tmin.shape[1]):
+        np.testing.assert_allclose(tmin.numpy()[:, j], jt[:, 2 * j : 2 * j + 2].min(1),
+                                   rtol=0, atol=2e-6 * scale)
+    assert not torch.equal(tmin, front_kernel_decimate(wins, 1.5, (local_h, w), 1, False)[2])

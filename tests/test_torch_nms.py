@@ -1,6 +1,7 @@
 """The PyTorch port's NMS extraction (kernels/nms.py, plain version on the
 CPU) held against the JAX package's Pallas kernel in interpret mode, its
-NumPy statement (tools/probe_nms.py) and its ``cells_to_fields``."""
+NumPy statement (tools/probe_nms.py) and its ``cells_to_fields``; the
+geodesic peak merge and the ``AG_NMS_MERGE`` policy likewise."""
 
 import sys
 from pathlib import Path
@@ -14,7 +15,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
-from probe_nms import nms_peaks  # noqa: E402
+from probe_nms import merge_peaks, nms_peaks, turbo_nms_detect  # noqa: E402
 
 from aprilgrid_tpu.oracle.numpy_ref import load_image  # noqa: E402
 from aprilgrid_tpu.pallas import frontend as jpal  # noqa: E402
@@ -28,6 +29,7 @@ from aprilgrid_tpu_torch.kernels.frontend import (  # noqa: E402
 from aprilgrid_tpu_torch.kernels.nms import (  # noqa: E402
     _BIGF,
     cells_to_fields,
+    merge_peaks_plain,
     nms_extract_raw,
     nms_peaks_plain,
 )
@@ -151,10 +153,162 @@ def test_cells_to_fields_overflow_counters():
     assert counts[1].tolist() == [float(n[1]), 0.0]
 
 
-def test_merge_is_not_ported():
+@pytest.mark.parametrize("merge", [4, 8])
+def test_nms_merge_matches_jax_kernel(data_dir, merge):
+    """The geodesic peak merge: the same occupied cells and label plane as
+    the JAX kernel with ``merge`` sweeps (its 160-row windows equal the
+    global merge the port runs), records within 1e-4, and the merge took
+    peaks away."""
+    img = load_image(str(data_dir / "iphone.png"))[:416, :640]
+    h, w = img.shape[:2]
+    jraw, _, _, ch, u16 = jpal.pad_raw(jnp.asarray(img)[None])
+    _, jhalf, jtmin = jpal.front_kernel_decimate(
+        jraw, 1.5, pre_padded=True, true_shape=(h, w), channels=ch, u16=u16,
+        interpret=True,
+    )
+    jthr = jnp.min(jtmin, axis=(1, 2, 3)) * 0.05
+    jcells = np.asarray(jnms.nms_extract_raw(
+        jhalf, jthr, h // 2, w // 2, channels=1, u16=False, luma_f32=True,
+        interpret=True, merge=merge,
+    ))
+
+    raw, _, _, ch, u16 = pad_raw(torch.from_numpy(img)[None])
+    _, half_p, tmin = front_kernel_decimate(raw, 1.5, (h, w), ch, u16)
+    thr = tmin.amin(-1) * 0.05
+    cells = nms_extract_raw(half_p, thr, h // 2, w // 2, merge=merge).numpy()
+    unmerged = nms_extract_raw(half_p, thr, h // 2, w // 2).numpy()
+
+    r = min(cells.shape[2], jcells.shape[2])
+    c = min(cells.shape[3], jcells.shape[3])
+    assert (cells[0, 5] > 0.5).sum() == (jcells[0, 5] > 0.5).sum() > 20
+    assert (cells[0, 5] > 0.5).sum() < (unmerged[0, 5] > 0.5).sum()
+    np.testing.assert_array_equal(cells[0, 5, :r, :c], jcells[0, 5, :r, :c])
+    np.testing.assert_allclose(cells[0, :5, :r, :c], jcells[0, :5, :r, :c],
+                               rtol=0, atol=1e-4)
+
+
+def _two_blobs():
+    """A relay mask of two blobs 2 pixels apart: the left one a bent
+    corridor holding two peaks 9 steps apart along it, the right one a
+    bar holding two peaks 3 steps apart; and a lone peak outside the mask
+    between them."""
+    relay = np.zeros((20, 30), bool)
+    relay[3:6, 2:12] = True      # left blob: a row band ...
+    relay[3:15, 9:12] = True     # ... and a column band below its right end
+    relay[3:15, 14:17] = True    # right blob, 2 columns from the left one
+    peaks = np.zeros_like(relay)
+    peaks[4, 3] = peaks[13, 10] = True   # left blob: 9 + 7 steps apart
+    peaks[5, 15] = peaks[8, 15] = True   # right blob: 3 steps apart
+    peaks[10, 13] = True                 # outside the mask
+    return peaks, relay
+
+
+@pytest.mark.parametrize("sweeps", [1, 3, 8, 16])
+def test_merge_peaks_plain_matches_probe(sweeps):
+    """``merge_peaks_plain`` is the NumPy statement
+    (``tools/probe_nms.py::merge_peaks``) on two blobs next to each other:
+    peaks of one blob collapse onto the scan-first once the sweeps cover
+    their distance along the mask, the blobs never merge, a peak outside
+    the mask stays; and on random planes."""
+    peaks, relay = _two_blobs()
+    got = merge_peaks_plain(torch.from_numpy(peaks), torch.from_numpy(relay), sweeps).numpy()
+    np.testing.assert_array_equal(got, merge_peaks(peaks, relay, sweeps))
+    assert got[4, 3] and got[5, 15] and got[10, 13]
+    assert got[8, 15] == (sweeps < 3)          # a key moves <= 1 px per pass
+    assert got[13, 10] == (sweeps < 16)        # 16 steps along the corridor
+    rng = np.random.default_rng(sweeps)
+    peaks = rng.random((2, 40, 50)) < 0.08
+    relay = rng.random((2, 40, 50)) < 0.6
+    got = merge_peaks_plain(torch.from_numpy(peaks), torch.from_numpy(relay), sweeps).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(got[i], merge_peaks(peaks[i], relay[i], sweeps))
+
+
+@pytest.mark.parametrize("merge", [-1, 9])
+def test_merge_outside_0_to_8_raises(merge):
     half_p = torch.zeros((1, 80, 128))
-    with pytest.raises(NotImplementedError, match="merge"):
-        nms_extract_raw(half_p, torch.zeros(1), 60, 100, merge=4)
+    with pytest.raises(ValueError, match="merge"):
+        nms_extract_raw(half_p, torch.zeros(1), 60, 100, merge=merge)
+
+
+@pytest.mark.parametrize("value", [None, "", "0", "4", "8", "12", "-1"])
+def test_nms_merge_policy_matches_jax(monkeypatch, value):
+    """``AG_NMS_MERGE`` resolves as the JAX pipeline resolves it: default
+    0, clamped to 0-8, and an empty value is an error in both."""
+    from aprilgrid_tpu import pipeline as jpipe
+    from aprilgrid_tpu_torch import pipeline as tpipe
+
+    if value is None:
+        monkeypatch.delenv("AG_NMS_MERGE", raising=False)
+    else:
+        monkeypatch.setenv("AG_NMS_MERGE", value)
+    if value == "":
+        with pytest.raises(ValueError):
+            jpipe._nms_merge()
+        with pytest.raises(ValueError):
+            tpipe._nms_merge()
+        return
+    assert tpipe._nms_merge() == jpipe._nms_merge() == {
+        None: 0, "0": 0, "4": 4, "8": 8, "12": 8, "-1": 0}[value]
+
+
+def test_turbo_nms_merge_detect_matches_jax(data_dir, monkeypatch):
+    """``AG_NMS_MERGE=8`` on the turbo NMS path (EuRoC, the smallest
+    golden whose peaks merge: 333 -> 313 at half resolution): the tag IDs
+    of the JAX package's merged NMS detect (its NumPy statement,
+    ``tools/probe_nms.py::turbo_nms_detect`` with 8 sweeps) and corners
+    within 0.1 px of it; the merge ran on the port's path."""
+    from aprilgrid_tpu.config import DEFAULT_PARAMS as JPARAMS
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch import pipeline as tpipe
+
+    img = load_image(str(data_dir / "EuRoC.png"))
+    want = turbo_nms_detect(img, 3, JPARAMS, {"merge_sweeps": 8})
+    monkeypatch.setenv("AG_TURBO_NMS", "1")
+    monkeypatch.setenv("AG_NMS_MERGE", "8")
+    merges = []
+    real = tpipe.nms_extract_raw
+    monkeypatch.setattr(tpipe, "nms_extract_raw",
+                        lambda *a, **kw: merges.append(kw["merge"]) or real(*a, **kw))
+    got = TagDetector("t36h11", device="cpu", decimate=True).detect(img)
+    assert merges == [8]
+    assert len(want) > 25 and set(got) == set(want)
+    for tid, corners in want.items():
+        err = np.abs(np.asarray(corners) - np.asarray(got[tid])).max()
+        assert err < 0.1, (tid, err)
+
+
+@pytest.mark.parametrize("merge", [0, 8])
+def test_nms_row_off_matches_jax(data_dir, merge):
+    """The row-sharding mode (no caller in the JAX package; held by its
+    checks) on the turbo path's half planes of a frame cut into two bands,
+    window 0 starting 48 half rows above the frame: on the cell rows of
+    each window's band, the same occupied cells and labels (the frame's
+    scan order) as the JAX kernel in interpret mode on the same planes, y
+    in the frame's rows, records within 1e-4."""
+    from aprilgrid_tpu_torch.parallel.sharding import CTX, row_windows
+
+    img = load_image(str(data_dir / "EuRoC.png"))[:, :384]
+    wins, roff, local_h, gh = row_windows(torch.from_numpy(img), 2, turbo=True)
+    w = img.shape[1]
+    _, half_p, tmin = front_kernel_decimate(wins, 1.5, (local_h, w), 1, False,
+                                            row_off=roff, global_h=gh)
+    h, wh = local_h // 2, w // 2
+    thr = tmin.amin().expand(2) * 0.05
+    cells = nms_extract_raw(half_p, thr, h, wh, merge=merge, row_off=roff,
+                            global_h=gh).numpy()
+    jcells = np.asarray(jnms.nms_extract_raw(
+        jnp.asarray(half_p.numpy()), jnp.asarray(thr.numpy()), h, wh, channels=1,
+        u16=False, luma_f32=True, interpret=True, merge=merge,
+        row_off=jnp.asarray(roff.numpy()), global_h=gh,
+    ))
+    band = slice(CTX // 4, (CTX + gh // 2) // 4)
+    got, want = cells[:, :, band], jcells[:, :, band, : cells.shape[3]]
+    assert (got[:, 5] > 0.5).sum() > 40
+    np.testing.assert_array_equal(got[:, 5], want[:, 5])
+    np.testing.assert_allclose(got[:, :5], want[:, :5], rtol=0, atol=1e-4)
+    lab = got[1, 5][got[1, 5] > 0.5].astype(np.int64) - 1
+    assert lab.min() // wh >= int(roff[1]) + CTX   # window 1's band, in frame rows
 
 
 # -- the premise of the kernel's record gate: the fit as stencils of a tile

@@ -41,7 +41,7 @@ def test_import_pulls_in_no_jax():
         "aprilgrid_tpu_torch.kernels.frontend, aprilgrid_tpu_torch.kernels.cluster, "
         "aprilgrid_tpu_torch.ops.cluster, aprilgrid_tpu_torch.pipeline, "
         "aprilgrid_tpu_torch.bench, aprilgrid_tpu_torch.utils.profiling, "
-        "aprilgrid_tpu_torch.utils.images\n"
+        "aprilgrid_tpu_torch.utils.images, aprilgrid_tpu_torch.parallel.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
@@ -114,6 +114,33 @@ def test_wrappers_never_fall_back(name):
         call = lambda: hamming_scan(rots, codes)  # noqa: E731
     with pytest.raises(ValueError, match="not served"):
         call()
+
+
+@pytest.mark.parametrize("name", ["front", "front_decimate", "cluster", "cluster_f32",
+                                  "nms", "nms_merge"])
+def test_mode_wrappers_never_fall_back(name):
+    """The row-sharding modes and the peak merge: a tensor on a device the
+    wrapper does not serve is an error too, and ``row_off`` without
+    ``global_h`` is refused before any run."""
+    meta = torch.device("meta")
+    roff = torch.zeros((1,), dtype=torch.int32, device=meta)
+    raw = torch.empty((1, 80, 128), dtype=torch.uint8, device=meta)
+    half = torch.empty((1, 80, 128), dtype=torch.float32, device=meta)
+    thr = torch.empty((1,), dtype=torch.float32, device=meta)
+    call = {
+        "front": lambda **kw: front_kernel(raw, 1.5, (64, 128), 1, False, **kw),
+        "front_decimate": lambda **kw: front_kernel_decimate(raw, 1.5, (64, 128), 1, False,
+                                                             **kw),
+        "cluster": lambda **kw: cluster_rochade_raw(raw, thr, 64, 128, **kw),
+        "cluster_f32": lambda **kw: cluster_rochade_raw(half, thr, 32, 64, luma_f32=True,
+                                                        **kw),
+        "nms": lambda **kw: nms_extract_raw(half, thr, 32, 64, **kw),
+        "nms_merge": lambda **kw: nms_extract_raw(half, thr, 32, 64, merge=8, **kw),
+    }[name]
+    with pytest.raises(ValueError, match="not served"):
+        call(row_off=roff, global_h=256) if name != "nms_merge" else call()
+    with pytest.raises(ValueError, match="row_off without global_h"):
+        call(row_off=roff)
 
 
 @pytest.mark.parametrize("family", [f.value for f in JFamily])
