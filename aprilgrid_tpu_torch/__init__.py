@@ -4,7 +4,8 @@ A port of the JAX package ``aprilgrid_tpu`` (which stays the reference)
 to PyTorch and hand-written CUDA kernels for NVIDIA Hopper. So far it
 carries the hybrid detector, exact and turbo (``decimate=True/"auto"``):
 dense front-end and tag decode on the card, board search in native C++ on
-the host.
+the host; its streaming ingest, input adapters, and data-, camera- and
+pipeline-parallel forms over several devices.
 
 Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
 
@@ -14,13 +15,31 @@ Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
   kernels with ``device="cpu"``.
 * :class:`DetectorParams` — tuning knobs.
 * :class:`TagFamily` — supported tag families.
+* :func:`to_detector_input` / :func:`detect_adapted` (``adapters``) —
+  torch tensors (CPU or CUDA; HW, HWC, CHW), numpy arrays and other
+  ``__dlpack__`` producers normalised to the detector's layouts, on the
+  input's device.
+* :func:`detect_stream` (``parallel.streaming``) — batches uploaded ahead
+  of the detect (pinned staging, a side stream); :class:`MultiCameraDetector`
+  — synchronised cameras as one batch, each camera on its device of a
+  ``camera`` mesh axis.
+* :func:`detect_batch_sharded` and :func:`make_mesh`
+  (``parallel.sharding``) — data-parallel ``detect_batch`` over a mesh
+  axis; :class:`PipelineParallelDetector` (``parallel.pipeline_parallel``)
+  — the front-end on one device, the decode on another.
+* :func:`saddle_distance2`, :class:`Tag`, :class:`Saddle` — the
+  reference's structs, for API parity.
 """
 
 import torch
 
+from .adapters import detect_adapted, to_detector_input
 from .config import Capacities, DetectorParams, PipelineConstants
-from .detector import TagDetector
+from .detector import Saddle, Tag, TagDetector, saddle_distance2
 from .families import FamilySpec, TagFamily, get_family
+from .parallel.pipeline_parallel import PipelineParallelDetector
+from .parallel.sharding import detect_batch_sharded, make_mesh
+from .parallel.streaming import MultiCameraDetector, detect_stream
 
 # Every plane stays f32 at full precision: TF32 convolutions or products
 # would move the saddle response threshold and the fits.
@@ -31,8 +50,18 @@ __all__ = [
     "Capacities",
     "DetectorParams",
     "FamilySpec",
+    "MultiCameraDetector",
     "PipelineConstants",
+    "PipelineParallelDetector",
+    "Saddle",
+    "Tag",
     "TagDetector",
     "TagFamily",
+    "detect_adapted",
+    "detect_batch_sharded",
+    "detect_stream",
     "get_family",
+    "make_mesh",
+    "saddle_distance2",
+    "to_detector_input",
 ]

@@ -21,6 +21,23 @@ call under ``AG_TIMELINE=1``: the per-label ms sums, the host's wait in
 the first ``pack_read`` and the time after the last ``fe_dispatch``.
 ``--trace`` adds the device-busy share of one call (torch.profiler).
 
+``--stream`` is the streamed-ingest bench instead (the port of the JAX
+package's ``tools/bench_stream.py``): ``BENCH_NBATCH`` (default 6) numpy
+batches of ``BENCH_BATCH`` (default 32) copies of one image (``--images``,
+default two_boards), exact mode, timed three ways, each as the median of
+``BENCH_REPS`` rounds taken in turns: ``serial`` (upload a batch with a
+pageable ``.to``, detect it, then the next), ``numpy`` (``detect_batch`` on
+the numpy batch, which uploads chunk by chunk), ``streamed``
+(``parallel.streaming.detect_stream``, prefetch 2) and ``device`` (the
+batch uploaded once before the rounds: the rate with no ingest). One JSON
+line per way:
+frames/s, ingest MB/s, the golden count held on every frame of every
+round, each round's ms to each batch's result; then the overlap ratio
+serial / streamed. ``--stream serial,numpy``
+runs only those ways (a parent commit without ``detect_stream``).
+The MB/s of every way count the host bytes of all batches, the ``device``
+way's too (which moves none of them in its rounds).
+
 Run from the repo root: ``python3 -m aprilgrid_tpu_torch.bench`` (on the
 card) or ``... --device cpu`` (plain PyTorch versions, for tests). Env:
 ``BENCH_BATCH``, ``BENCH_REPS``, and the runtime's own ``AG_CHUNK``,
@@ -180,11 +197,78 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
             del os.environ["AG_TURBO_NMS"]
 
 
+STREAM_WAYS = ("serial", "numpy", "streamed", "device")
+
+
+def bench_stream(name: str, device: str, batch: int, n_batches: int, reps: int,
+                 ways: list[str]) -> list[dict]:
+    """The streamed-ingest records of one image (module docstring): one
+    per way, then the overlap ratio where serial and streamed both ran."""
+    img = read_png(DATA / f"{name}.png")
+    det = TagDetector("t36h11", device=device)
+    host = np.ascontiguousarray(np.broadcast_to(img, (batch,) + img.shape))
+    resident = torch.from_numpy(host).to(device)   # the "device" way's frames
+
+    def run(way):
+        """The way's results and the host-clock ms from the round's start to
+        each batch's result."""
+        t0, out, at = time.perf_counter(), [], []
+        if way == "streamed":
+            from .parallel.streaming import detect_stream
+
+            results = detect_stream(det, (host for _ in range(n_batches)), prefetch=2)
+        else:
+            frames = {"serial": lambda: torch.from_numpy(host).to(device),
+                      "numpy": lambda: host, "device": lambda: resident}[way]
+            results = (det.detect_batch(frames()) for _ in range(n_batches))
+        for res in results:
+            out.append(res)
+            at.append((time.perf_counter() - t0) * 1e3)
+        return out, at
+
+    def held(way, out):
+        counts = {len(t) for res in out for t in res}
+        if len(out) != n_batches or counts != {GOLDEN[name]}:
+            raise AssertionError(f"stream {name} {way}: tag counts {sorted(counts)} "
+                                 f"over {len(out)} batches, golden {GOLDEN[name]}")
+
+    for way in ways:   # warm-up: builds, allocator, pinned buffers
+        held(way, run(way)[0])
+    secs: dict = {way: [] for way in ways}
+    marks: dict = {way: [] for way in ways}
+    for _ in range(reps):
+        for way in ways:
+            out, at = run(way)
+            secs[way].append(at[-1] / 1e3)
+            marks[way].append(at)
+            held(way, out)
+    frames, mbytes = batch * n_batches, host.nbytes * n_batches / 1e6
+    card = card_name() if device != "cpu" else None
+    recs = []
+    for way in ways:
+        t = statistics.median(secs[way])
+        recs.append({
+            "stream": way, "image": name, "shape": list(img.shape), "batch": batch,
+            "batches": n_batches, "reps": reps, "frames_per_s": frames / t,
+            "ingest_mb_per_s": mbytes / t, "seconds": secs[way],
+            "batch_done_ms": marks[way],
+            "tags": GOLDEN[name], "device": device, "card": card,
+        })
+    if "serial" in secs and "streamed" in secs:
+        recs.append({
+            "stream_overlap": statistics.median(secs["serial"])
+            / statistics.median(secs["streamed"]),
+            "image": name, "batch": batch, "device": device, "card": card,
+        })
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--images", default=",".join(GOLDEN),
-                    help="comma-separated golden images (default: all seven)")
+    ap.add_argument("--images", default=None,
+                    help="comma-separated golden images (default: all seven; "
+                         "two_boards with --stream)")
     ap.add_argument("--modes", default=",".join(MODES),
                     help="comma-separated modes; the turbo ones run on the 1080p "
                          "images only")
@@ -195,18 +279,29 @@ def main(argv=None) -> int:
                     help="add one AG_TIMELINE=1 call per cell and its label sums")
     ap.add_argument("--trace", action="store_true",
                     help="add the device-busy share of one call (torch.profiler)")
+    ap.add_argument("--stream", nargs="?", const=",".join(STREAM_WAYS), default=None,
+                    help="the streamed-ingest bench; optionally the ways to run, "
+                         "comma-separated (default: serial,numpy,streamed,device)")
     args = ap.parse_args(argv)
-    batch = int(os.environ.get("BENCH_BATCH", "128"))
     reps = int(os.environ.get("BENCH_REPS", "5"))
     if args.device != "cpu" and not torch.cuda.is_available():
         print("bench: no CUDA device (pass --device cpu for the plain versions)",
               file=sys.stderr)
         return 2
+    if args.stream is not None:
+        batch = int(os.environ.get("BENCH_BATCH", "32"))
+        n_batches = int(os.environ.get("BENCH_NBATCH", "6"))
+        for name in (args.images or "two_boards").split(","):
+            for rec in bench_stream(name, args.device, batch, n_batches, reps,
+                                    args.stream.split(",")):
+                print(json.dumps(rec), flush=True)
+        return 0
+    batch = int(os.environ.get("BENCH_BATCH", "128"))
     refs: dict = {}
     fps: dict = {}
     parity_ok = True
     for mode in args.modes.split(","):
-        for name in args.images.split(","):
+        for name in (args.images or ",".join(GOLDEN)).split(","):
             if MODES[mode][0] and name not in TURBO_IMAGES:
                 continue
             rec = bench_cell(name, mode, args.device, batch, reps, args.host_frames,

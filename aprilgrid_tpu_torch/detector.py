@@ -57,6 +57,15 @@ class Tag:
         return f"Tag(id={self.id}, p={self.p})"
 
 
+def saddle_distance2(s0, s1) -> float:
+    """Squared distance between two saddles (reference: saddle_distance2,
+    src/saddle.rs:69-73, unused by the pipeline; provided for API
+    parity)."""
+    x = s0.p[0] - s1.p[0]
+    y = s0.p[1] - s1.p[1]
+    return x * x + y * y
+
+
 class Saddle:
     """Host-side saddle record (reference struct: src/saddle.rs:3-9)."""
 
@@ -136,6 +145,7 @@ class TagDetector:
         self.decimate = decimate
         # AG_TIMELINE=1: the host timeline of the last detect call
         self.last_timeline: list | None = None
+        self._upload_streams: dict = {}
         native.build()  # the hybrid path needs the host search: raise now
 
     def _use_decimate(self, h: int, w: int) -> bool:
@@ -189,9 +199,20 @@ class TagDetector:
             for i in np.flatnonzero(valid)
         ]
 
+    def _upload_stream(self, device: torch.device):
+        """The side stream that host batches bound for ``device`` are copied
+        on (``_HostUpload``): one a card, made on first use and kept. The
+        caching allocator keeps a block for the stream it was allocated on,
+        so a stream made for every call took fresh memory segments on every
+        call."""
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in self._upload_streams:
+            self._upload_streams[index] = torch.cuda.Stream(torch.device("cuda", index))
+        return self._upload_streams[index]
+
     # -- hybrid runtime -----------------------------------------------------
 
-    def _detect_hybrid(self, imgs: torch.Tensor, chunk: int | None = None):
+    def _detect_hybrid(self, imgs: torch.Tensor, chunk: int | None = None, put=None):
         """The hybrid runtime (the JAX package's ``detector.py::
         _detect_hybrid``): device front-end, native C++ board search on the
         packed saddles, device decode, as a software pipeline over chunks
@@ -208,6 +229,13 @@ class TagDetector:
         is fed first and the host's waits on front-ends fill with deeper
         passes of older chunks. The final pass's decodes start no copy of
         their own; they are read once, fused, at the end.
+
+        ``put(frames, lo)``, where given, places a chunk's frames
+        ``imgs[lo:hi]`` on the device its front-end runs on (default: the
+        detector's device). ``parallel.sharding.detect_batch_sharded``
+        passes one that puts each shard's chunk on its shard's device; the
+        chunk's saddles, decodes and their uploads then stay there, since
+        each follows its ``packed`` tensor.
 
         ``AG_TIMELINE=1`` records ``(label, t0, t1)`` on the host clock
         around every host-side blocking site into ``last_timeline``;
@@ -252,10 +280,22 @@ class TagDetector:
         fronts: list[tuple | None] = [None] * n_chunks
         state: list[dict | None] = [None] * n_chunks
 
+        # a host batch bound for the card is staged in pinned memory and
+        # copied on a side stream; each upload is held to the end of the call
+        side = (self._upload_stream(self.device) if put is None and not imgs.is_cuda
+                and self.device.type == "cuda" else None)
+        uploads: list = []
+
         def front(lo, hi):
             # a host batch is uploaded here, inside the label
-            return frontend_packed(imgs[lo:hi].to(self.device), self.params,
-                                   self.consts, self.caps, dec, nms)
+            if put is not None:
+                frames = put(imgs[lo:hi], lo)
+            elif side is not None:
+                uploads.append(_HostUpload(imgs[lo:hi], self.device, side))
+                frames = uploads[-1].tensor()
+            else:
+                frames = imgs[lo:hi].to(self.device)
+            return frontend_packed(frames, self.params, self.consts, self.caps, dec, nms)
 
         def ensure_fe(ci):
             if 0 <= ci < n_chunks and fronts[ci] is None:
@@ -363,14 +403,19 @@ class TagDetector:
 
         def collect_tail(jobs):
             # the final pass feeds no further search: its decodes are
-            # concatenated on the device and read once
+            # concatenated on their device and read once (once a device,
+            # where the chunks lie on several)
             for ci, job in jobs:
                 dispatch_job(ci, job)
-            live = [(ci, job) for ci, job in jobs if job["dec"] is not None]
-            if len(live) == 1:
-                ci, job = live[0]
-                apply_dec(ci, job, _ev(f"dec_read c{ci}", _to_numpy, job["dec"]))
-            elif live:
+            by_dev: dict = {}
+            for ci, job in jobs:
+                if job["dec"] is not None:
+                    by_dev.setdefault(job["dec"].device, []).append((ci, job))
+            for live in by_dev.values():
+                if len(live) == 1:
+                    ci, job = live[0]
+                    apply_dec(ci, job, _ev(f"dec_read c{ci}", _to_numpy, job["dec"]))
+                    continue
                 flat = torch.cat([j["dec"].reshape(-1, j["dec"].shape[-1]) for _, j in live])
                 big = _ev("dec_read tail-fused", _to_numpy, flat)
                 off = 0
@@ -472,6 +517,66 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+class _HostUpload:
+    """A host batch's upload to the card started without blocking the host
+    (the counterpart of an asynchronous device put): the batch is
+    materialised once, straight into a pinned staging buffer (a broadcast
+    or strided numpy view included; a ``copy_``, which runs on PyTorch's
+    intra-op threads), then copied on ``stream``, a side
+    stream, with an event recorded after the copy. ``tensor`` hands the
+    device tensor to the device's current stream.
+
+    Stream hazards are silent (a missing wait gives wrong tags only under
+    load), so the order is fixed here: the device tensor is allocated on the
+    side stream; the consumer stream waits on the copy's event before any
+    kernel reads it; ``record_stream(consumer)`` keeps the caching
+    allocator from handing its memory back to the side stream while the
+    consumer still reads it; the pinned source is held with this object
+    until the copy has passed. No step waits for the card. uint16 goes
+    through the int16 view (few CUDA kernels take uint16). A CUDA tensor
+    is handed on as it is; for a CPU device the upload is
+    ``torch.from_numpy`` and nothing else."""
+
+    __slots__ = ("dev", "host", "event")
+
+    def __init__(self, arr, device: torch.device, stream=None):
+        self.host = self.event = None
+        if device.type != "cuda" or (isinstance(arr, torch.Tensor) and arr.is_cuda):
+            self.dev = _as_tensor(arr)
+            return
+        src = arr if isinstance(arr, torch.Tensor) else _numpy_view(np.asarray(arr))
+        dtype = src.dtype
+        store = torch.int16 if dtype == torch.uint16 else dtype
+        self.host = torch.empty(src.shape, dtype=store, pin_memory=True)
+        self.host.copy_(src.view(store))   # one pass, on the intra-op threads
+        with torch.cuda.stream(stream):
+            dev = torch.empty(src.shape, dtype=store, device=device)
+            dev.copy_(self.host, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        self.dev = dev.view(dtype)
+
+    def tensor(self) -> torch.Tensor:
+        """The device tensor, ordered after the copy on its device's current
+        stream."""
+        if self.event is not None:
+            consumer = torch.cuda.current_stream(self.dev.device)
+            consumer.wait_event(self.event)
+            self.dev.record_stream(consumer)
+        return self.dev
+
+
+def _numpy_view(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``a``'s memory, strides and all (a broadcast view
+    keeps its zero strides): it is only read. Negative strides, which
+    tensors do not take, are copied out first."""
+    if any(st < 0 for st in a.strides):
+        a = np.ascontiguousarray(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(a)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

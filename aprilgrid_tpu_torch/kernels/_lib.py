@@ -156,8 +156,22 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name: str, t: torch.Tensor, *args) -> int:
+    """Call the library's entry ``ag_<name>`` with ``args`` and, as its last
+    argument, the current stream of ``t``'s device; return its error code
+    (``check`` raises on a CUDA error).
+
+    ``t``'s device is made the current CUDA device for the call: an entry's
+    ``cudaFuncSetAttribute``, ``cudaGetDevice`` and launch act on the current
+    device, and a caller's thread may have another one current (a mesh's
+    shards on several cards). Every launch of every wrapper passes here.
+    One card cannot show the guard at work: ``chip_smoke.py`` launches on
+    ``cuda:1`` only where a second card is visible, and a CPU test pins
+    that the guard is entered around the call
+    (``tests/test_torch_package.py``)."""
+    with torch.cuda.device(t.device):
+        return getattr(lib(), f"ag_{name}")(
+            *args, torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check(err: int, name: str) -> None:

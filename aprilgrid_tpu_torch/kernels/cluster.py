@@ -59,7 +59,7 @@ from ..ops.geometry import rust_round
 from ..ops.rochade import Saddles, fit_record, gather_patches, saddle_angles
 from . import LAUNCHES
 from ._fit import fit_struct
-from ._lib import check, lib, require_cuda, stream_of
+from ._lib import check, launch, require_cuda
 from .frontend import _taps, check_raw, check_rows, raw_luma
 
 _CAPF = 1024  # accepted-candidate capacity PER FRAME (append-compacted)
@@ -187,12 +187,13 @@ def cluster_rochade_raw(
     scratch = _scratch(blur)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
-    err = lib().ag_cluster_rochade_raw(
+    err = launch(
+        "cluster_rochade_raw", raw_p,
         raw_p.data_ptr(), b, h_pad, w_pad, channels,
         _MODE_F32 if luma_f32 else int(u16), h, w, thr.data_ptr(),
         ctypes.addressof(taps), ctypes.addressof(fit),
         float(move_thr), hp2, None if row_off is None else row_off.data_ptr(), gh,
-        blur.data_ptr(), *(t.data_ptr() for t in scratch), _CAPF, stream_of(raw_p),
+        blur.data_ptr(), *(t.data_ptr() for t in scratch), _CAPF,
     )
     check(err, "cluster_rochade_raw")
     key = "cluster_rochade_raw[luma_f32]" if luma_f32 else "cluster_rochade_raw"
@@ -284,10 +285,11 @@ def cluster_rochade(
     thr = thr.contiguous()
     scratch = _scratch(blur)
     fit = fit_struct(hp2 // 2)
-    err = lib().ag_cluster_rochade(
+    err = launch(
+        "cluster_rochade", blur,
         blur.data_ptr(), blur.shape[0], hp, wp, h, w, thr.data_ptr(),
         ctypes.addressof(fit), float(move_thr), hp2,
-        *(t.data_ptr() for t in scratch), _CAPF, stream_of(blur),
+        *(t.data_ptr() for t in scratch), _CAPF,
     )
     check(err, "cluster_rochade")
     LAUNCHES["cluster_rochade"] += 1

@@ -26,7 +26,7 @@ import torch
 from ..families import FamilySpec
 from ..ops.decode import _affine_pinv, _bit_grid, _decode_post, _decode_pre, _rot_perms
 from . import LAUNCHES
-from ._lib import check, lib, require_cuda, stream_of
+from ._lib import check, launch, require_cuda
 
 MAX_CODES = 1 << 20  # the scan's key holds the code index in 20 bits
 
@@ -63,9 +63,10 @@ def hamming_scan(rots: torch.Tensor, codes: torch.Tensor):
     codes = codes.contiguous()
     out_min = torch.empty((b, r), dtype=torch.float32, device=rots.device)
     out_idx = torch.empty((b, r), dtype=torch.int32, device=rots.device)
-    err = lib().ag_hamming_scan(
+    err = launch(
+        "hamming_scan", rots,
         rows.data_ptr(), b * r, nb, codes.data_ptr(), codes.shape[0],
-        out_min.data_ptr(), out_idx.data_ptr(), stream_of(rots),
+        out_min.data_ptr(), out_idx.data_ptr(),
     )
     check(err, "hamming_scan")
     LAUNCHES["hamming_scan"] += 1
@@ -148,12 +149,13 @@ def decode_packed(packed, luma8, qarr, hw, dcap, spec: FamilySpec, margin,
     packed, luma8, qarr = (t.contiguous() for t in (packed, luma8, qarr))
     pinv, grid, src, words = _decode_tables(spec, float(margin), str(packed.device))
     out = torch.empty((b, dcap, 10), dtype=torch.float32, device=packed.device)
-    err = lib().ag_decode_packed(
+    err = launch(
+        "decode_packed", packed,
         packed.data_ptr(), packed.shape[1], luma8.data_ptr(), luma8.shape[1],
         luma8.shape[2], qarr.data_ptr(), b, dcap, h, w, pinv.data_ptr(),
         grid.data_ptr(), src.data_ptr(), src.shape[1], words.data_ptr(),
         words.shape[0], spec.hamming_distance, int(valid_brightness_threshold),
-        int(max_invalid_bit), int(min_contrast), out.data_ptr(), stream_of(packed),
+        int(max_invalid_bit), int(min_contrast), out.data_ptr(),
     )
     check(err, "decode_packed")
     LAUNCHES["decode_packed"] += 1

@@ -38,7 +38,7 @@ import torch
 from ..ops.frontend import decimate2, gaussian_blur, gaussian_kernel, hessian_response
 from ..ops.gray import raw_luma
 from . import LAUNCHES
-from ._lib import check, lib, require_cuda, stream_of
+from ._lib import check, launch, require_cuda
 
 TILE_H = 64    # image rows per tile (the TPU kernel's grid step)
 STRIP_W = 64   # image columns per CUDA block
@@ -262,12 +262,12 @@ def front_kernel(raw_p: torch.Tensor, sigma: float,
     strip_min = torch.empty(
         (b, h_pad // TILE_H, w_pad // STRIP_W), dtype=torch.float32, device=dev
     )
-    err = lib().ag_front_kernel(
+    err = launch(
+        "front_kernel", raw_p,
         raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
         ctypes.addressof(taps), None if row_off is None else row_off.data_ptr(),
         h if row_off is None else global_h, luma8.data_ptr(),
         blur.data_ptr() if emit_blur else None, strip_min.data_ptr(),
-        stream_of(raw_p),
     )
     check(err, "front_kernel")
     if row_off is not None:
@@ -326,11 +326,12 @@ def front_kernel_decimate(raw_p: torch.Tensor, sigma: float,
     strip_min = torch.empty(
         (b, hh_pad // TILE_H, wh_pad // STRIP_W), dtype=torch.float32, device=dev
     )
-    err = lib().ag_front_kernel_decimate(
+    err = launch(
+        "front_kernel_decimate", raw_p,
         raw_p.data_ptr(), b, h_pad, w_pad, channels, int(u16), h, w,
         ctypes.addressof(taps), None if row_off is None else row_off.data_ptr(),
         h // 2 if row_off is None else global_h, luma8.data_ptr(), half_p.data_ptr(),
-        hh_pad, wh_pad, strip_min.data_ptr(), stream_of(raw_p),
+        hh_pad, wh_pad, strip_min.data_ptr(),
     )
     check(err, "front_kernel_decimate")
     LAUNCHES["front_kernel_decimate[row_off]" if row_off is not None
@@ -397,11 +398,12 @@ def fused_frontend(luma: torch.Tensor, sigma: float = 1.5, crop: bool = True,
         strip_min = torch.empty(
             (b, h_pad // TILE_H, w_pad // STRIP_W), dtype=torch.float32, device=dev
         )
-        err = lib().ag_fused_frontend(
+        err = launch(
+            "fused_frontend", luma,
             luma.data_ptr(), b, hin, win, h, w, h_pad, w_pad,
             ctypes.addressof(taps), blur.data_ptr(),
             resp.data_ptr() if emit_resp else None, shape[1], shape[2],
-            strip_min.data_ptr(), stream_of(luma),
+            strip_min.data_ptr(),
         )
         check(err, "fused_frontend")
         LAUNCHES["fused_frontend"] += 1
@@ -447,9 +449,10 @@ def gray_kernel(img: torch.Tensor):
     h_pad, w_pad = padded_shape(h, w)
     luma_f = torch.empty((b, h_pad, w_pad), dtype=torch.float32, device=img.device)
     luma8 = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=img.device)
-    err = lib().ag_gray_kernel(
+    err = launch(
+        "gray_kernel", img,
         img.data_ptr(), b, h, w, channels, int(u16), h_pad, w_pad,
-        luma_f.data_ptr(), luma8.data_ptr(), stream_of(img),
+        luma_f.data_ptr(), luma8.data_ptr(),
     )
     check(err, "gray_kernel")
     LAUNCHES["gray_kernel"] += 1

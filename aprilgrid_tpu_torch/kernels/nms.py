@@ -64,7 +64,7 @@ from ..ops.frontend import gaussian_blur, hessian_response
 from ..ops.rochade import fit_record, gather_patches
 from . import LAUNCHES
 from ._fit import fit_struct
-from ._lib import check, lib, require_cuda, stream_of
+from ._lib import check, launch, require_cuda
 from .frontend import _taps, check_raw, check_rows
 
 _R = 3          # Chebyshev radius of the peak window
@@ -227,14 +227,14 @@ def nms_extract_raw(
         peaks = torch.zeros((b, h_pad, w_pad), dtype=torch.uint8, device=dev)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
-    err = lib().ag_nms_extract_raw(
+    err = launch(
+        "nms_extract_raw", half_p,
         half_p.data_ptr(), b, h_pad, w_pad, h, w, thr.data_ptr(),
         ctypes.addressof(taps), ctypes.addressof(fit), float(move_thr), hp2,
         None if row_off is None else row_off.data_ptr(), gh,
         merge, blur.data_ptr(), cand.data_ptr(), flags.data_ptr(),
         None if mask is None else mask.data_ptr(),
         None if peaks is None else peaks.data_ptr(), cells.data_ptr(),
-        stream_of(half_p),
     )
     if err == -1:
         raise ValueError(

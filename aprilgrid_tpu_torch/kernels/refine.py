@@ -26,7 +26,7 @@ import torch
 from ..ops.rochade import Saddles, refine_at_raw
 from . import LAUNCHES
 from ._fit import fit_struct
-from ._lib import check, lib, require_cuda, stream_of
+from ._lib import check, launch, require_cuda
 from .frontend import _taps, check_raw
 
 
@@ -78,11 +78,12 @@ def sparse_refine_raw(
     fields = torch.empty((b, kcap, 8), dtype=torch.float32, device=raw_p.device)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
-    err = lib().ag_sparse_refine_raw(
+    err = launch(
+        "sparse_refine_raw", raw_p,
         raw_p.data_ptr(), b, raw_p.shape[1] - 16, raw_p.shape[2] // channels,
         channels, int(u16), h, w, ctypes.addressof(taps), centers.data_ptr(),
         valid.data_ptr(), kcap, ctypes.addressof(fit), float(move_thr), hp2,
-        fields.data_ptr(), stream_of(raw_p),
+        fields.data_ptr(),
     )
     check(err, "sparse_refine_raw")
     LAUNCHES["sparse_refine_raw"] += 1

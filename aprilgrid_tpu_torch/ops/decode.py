@@ -74,6 +74,39 @@ def _rot_perms(edge: int) -> np.ndarray:
     return np.stack(perms)  # (4, n)
 
 
+def tag_homography(corners, side_bits: int, margin: float) -> torch.Tensor:
+    """The 8-DoF DLT homography from the canonical tag frame to the image
+    quad (reference: tag_homography, src/image_util.rs:5-37, dead code
+    there; the pipeline uses the affine). Returns the (3, 3) float32 H from
+    the last right singular vector of the 8x9 DLT system (the reference's
+    ``svd.V().col(8)``), by ``torch.linalg.svd`` in f32 on ``corners``'
+    device (CPU for a list).
+
+    Unlike the reference, the system is solved with the corners centred on
+    their mean and scaled by their largest offset, and H maps back: the
+    raw system's smallest singular vector is ill-conditioned in f32 at
+    image-scale coordinates (with PyTorch's SVD the mapped corners of
+    quads at 100 and 1800 px missed a 1e-3-px bound), the conditioned one
+    keeps them within it. A singular vector's sign and scale are not
+    unique: compare two such H by the mapping, not entry by entry."""
+    c = torch.as_tensor(corners, dtype=torch.float32).reshape(4, 2)
+    mu = c.mean(0)
+    scale = (c - mu).abs().max().clamp_min(1.0)
+    cn = (c - mu) / scale
+    s = float(side_bits) - 1.0 + margin
+    src = torch.tensor([(-margin, -margin, 1.0), (-margin, s, 1.0), (s, s, 1.0),
+                        (s, -margin, 1.0)], dtype=torch.float32, device=c.device)
+    zero = torch.zeros((4, 3), dtype=torch.float32, device=c.device)
+    rows_x = torch.cat([src, zero, -cn[:, :1] * src], dim=1)
+    rows_y = torch.cat([zero, src, -cn[:, 1:] * src], dim=1)
+    a = torch.stack([rows_x, rows_y], dim=1).reshape(8, 9)
+    hn = torch.linalg.svd(a).Vh[-1].reshape(3, 3)
+    back = torch.eye(3, dtype=torch.float32, device=c.device)
+    back[0, 0] = back[1, 1] = scale
+    back[:2, 2] = mu
+    return back @ hn
+
+
 def decode_positions_px(corners, spec: FamilySpec, margin: float,
                         width: int, height: int):
     """Public bit-cell sample positions for one quad — the standalone

@@ -121,6 +121,42 @@ def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return out
 
 
+def detect_batch_sharded(detector, imgs, mesh: Mesh, axis: str = "data"
+                         ) -> list[dict[int, list[tuple[float, float]]]]:
+    """Data-parallel ``detect_batch``: the frames split evenly over the
+    devices of ``axis``, shard i's frames on ``mesh.along(axis)[i]``.
+    Returns ``detector.detect_batch(imgs)``'s dicts, bit for bit, one per
+    frame in batch order.
+
+    The hybrid runtime runs one chunk per shard: a put hook
+    (``TagDetector._detect_hybrid(put=...)``) places each chunk's frames on
+    its shard's device, where its front-end runs; its saddle download, its
+    decode's upload and the decode follow its ``packed`` tensor there. The
+    board search runs on the host over every shard's saddles. Every
+    frame's threshold, search and decode are the frame's own, so sharding
+    changes the schedule only. One chunk a shard can move the decode's
+    capacity step (24/48/96 quad slots, from a chunk's largest count)
+    away from the single device's; the decoded rows stay the same.
+
+    ``B % n_shards != 0`` raises ``ValueError``. The on-device search
+    (``mode="xla"``) is not ported yet (ROADMAP.md A.2), so neither is its
+    branch here."""
+    from ..detector import _as_tensor
+
+    imgs = _as_tensor(imgs)
+    devs = mesh.along(axis)
+    b = int(imgs.shape[0])
+    if b % len(devs):
+        raise ValueError(f"a batch of {b} frames does not split over {len(devs)} "
+                         f"devices of axis {axis!r}")
+    per = b // len(devs)
+
+    def put(frames: torch.Tensor, lo: int) -> torch.Tensor:
+        return _to(frames, devs[lo // per])
+
+    return detector._detect_hybrid(imgs, chunk=per, put=put)
+
+
 def _halo_exchange_rows(bands: list[torch.Tensor], halo: int) -> list[torch.Tensor]:
     """Each shard's band with ``halo`` rows of its neighbours above and
     below, on its own device; the global top and bottom edges replicate

@@ -4,9 +4,12 @@
 Drives the port's paths — ``TagDetector(device="cuda").detect_batch``, the
 exact hybrid detector, its turbo mode (``decimate=True``, both extraction
 variants) and the plane path (frames beyond the fused kernels' label
-domain, ``refined_saddle_points``) — on the bundled golden images at full
-resolution, after building every kernel from ``aprilgrid_tpu_torch/csrc``
-and holding each against its plain PyTorch version on the card.
+domain, ``refined_saddle_points``), and the entry points that feed it
+(``detect_stream``, ``to_detector_input``, ``detect_batch_sharded``,
+``MultiCameraDetector``, ``PipelineParallelDetector``) — on the bundled
+golden images at full resolution, after building every kernel from
+``aprilgrid_tpu_torch/csrc`` and holding each against its plain PyTorch
+version on the card.
 
 Phases (a failing phase raises, so the script exits non-zero):
 
@@ -73,7 +76,7 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
 6. a line with the cluster entries' per-launch split, then one JSON line
-   with each kernel's launches in phases 3-5 and 7 (counted per path:
+   with each kernel's launches in phases 3-5, 7 and 8 (counted per path:
    zeroed before it, read after it), its error against the plain version,
    its time, the plain version's time and its bound (and, for phase 7's
    rows, its device ms by torch.profiler);
@@ -88,7 +91,20 @@ Phases (a failing phase raises, so the script exits non-zero):
    one shard's window; the row-sharded front-ends on that frame with all
    shards on this card (exact at 2 and 4 shards, turbo at 2 and 3 with the
    drain, at 2 with the NMS at m0 and m8), slot for slot bit-equal to the
-   single-device front-end (their path), and their ms a frame.
+   single-device front-end (their path), and their ms a frame;
+8. (printed before 6) ingest and multi-device: ``detect_stream`` over four
+   numpy batches each of two_boards (RGB), EuRoC (u8) and TUM_VI (u16) at
+   batch 32, blank frames at other places in each batch, with the search
+   on its worker and inline, every batch bit-equal to ``detect_batch``;
+   the upload's enqueue (pinned staging, the side-stream copy, the
+   consumer's wait) under ``torch.cuda.set_sync_debug_mode("error")``;
+   ``to_detector_input`` on CUDA CHW tensors, which stay on the card;
+   ``detect_batch_sharded`` (exact, turbo NMS and drain) on ``[cuda:0] * 2``
+   and ``* 4``, ``MultiCameraDetector`` on a ``camera`` mesh of ``[cuda:0]
+   * 2`` and ``PipelineParallelDetector`` on ``[cuda:0, cuda:0]``, each
+   bit-equal to ``detect_batch`` (and on ``[cuda:0, cuda:1]`` where a
+   second card is visible, else a line says it was not run); their ms
+   beside ``detect_batch``'s on the same b32 batch, as a record.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -102,7 +118,8 @@ synthetic check and ``phase_decimate_split``, for work on that kernel;
 ``--decode-only`` runs the decode kernels' checks and
 ``phase_decode_split``, for work on the decode; ``--runtime-only`` runs
 ``phase_runtime``, for work on the facade's runtime; ``--sharded-only``
-runs phase 7, for work on the merge and the row sharding).
+runs phase 7, for work on the merge and the row sharding; ``--ingest-only``
+runs phase 8, for work on streaming and the multi-device detectors).
 """
 
 from __future__ import annotations
@@ -723,7 +740,11 @@ def _profile_split(calls: dict, iters: int = 10) -> dict:
     function), mean over ``iters`` calls after one warm-up: per entry the ms
     of each of this library's kernels by name, and under ``"at::"`` the
     summed ms and the count per call of every other device operation the
-    call enqueues (PyTorch's own kernels, fills and copies)."""
+    call enqueues (PyTorch's own kernels, fills and copies). A session whose
+    trace holds no device event of this library is taken again, up to three
+    sessions: the profiler has once returned a session without device events
+    (an NVIDIA H100 80GB HBM3 run of the whole smoke, where every other
+    session had them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -731,20 +752,25 @@ def _profile_split(calls: dict, iters: int = 10) -> dict:
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        own, other_ms, other_n = {}, 0.0, 0
-        for ev in prof.key_averages():
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
-                continue   # a host-side operator: its kernels are listed themselves
-            mine = re.search(r"(\w+_kernel(?:<\w+>)?)\(", ev.key)
-            if mine and "at::" not in ev.key:
-                own[mine.group(1)] = ev.device_time_total / ev.count / 1e3
-            else:
-                other_ms += ev.device_time_total / iters / 1e3
-                other_n += ev.count
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            own, other_ms, other_n = {}, 0.0, 0
+            for ev in prof.key_averages():
+                if "CUDA" not in str(getattr(ev, "device_type", "")):
+                    continue   # a host-side operator: its kernels are listed themselves
+                mine = re.search(r"(\w+_kernel(?:<\w+>)?)\(", ev.key)
+                if mine and "at::" not in ev.key:
+                    own[mine.group(1)] = ev.device_time_total / ev.count / 1e3
+                else:
+                    other_ms += ev.device_time_total / iters / 1e3
+                    other_n += ev.count
+            if own:
+                break
+            print(f"profile split {name}: a session without device events, taken again",
+                  flush=True)
         if not own or min(own.values()) <= 0.0:
             raise AssertionError(f"{name}: the profiler shows no device time: {own}")
         split[name] = dict(own)
@@ -2620,6 +2646,186 @@ def sharded_rows(launches: dict, rec: dict) -> list[dict]:
     return out
 
 
+INGEST_KEYS = ("front_kernel", "cluster_rochade_raw", "decode_packed",
+               "front_kernel_decimate", "cluster_rochade_raw[luma_f32]",
+               "nms_extract_raw", "sparse_refine_raw")
+
+
+def _ingest_batches(img, batch: int, n: int) -> list:
+    """``n`` numpy batches of ``batch`` frames of ``img``, each with blank
+    frames at other places (frame i of batch k blank iff (i + k) % 4 == 0),
+    so a detect that read another batch's bytes would not give its tags."""
+    blank = np.full_like(img, 128)
+    return [np.stack([blank if (i + k) % 4 == 0 else img for i in range(batch)])
+            for k in range(n)]
+
+
+def _median_ms(fn, reps: int = 3) -> float:
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2]
+
+
+def ingest_sync_check(card: str, batches) -> None:
+    """The prefetch's enqueue (staging into pinned memory, the copy on the
+    side stream, the consumer's wait) under
+    ``torch.cuda.set_sync_debug_mode("error")``: it makes the host wait for
+    nothing; the uploaded tensor equals the batch."""
+    import torch
+
+    from aprilgrid_tpu_torch.detector import _HostUpload
+
+    dev = torch.device("cuda", 0)
+    side = torch.cuda.Stream(dev)
+    for arr in batches:
+        _HostUpload(arr, dev, side).tensor()   # warm: pinned blocks, allocator
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = _HostUpload(arr, dev, side).tensor()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if not torch.equal(t.view(torch.uint8).cpu(), torch.from_numpy(arr.view(np.uint8))):
+            raise AssertionError(f"_HostUpload {arr.dtype} {arr.shape}: bytes differ")
+    print(f"ingest sync-debug: the prefetch's enqueue of {len(batches)} batches "
+          f"({', '.join(str(a.dtype) for a in batches)}) makes the host wait for "
+          f"nothing; bytes equal [{card}]", flush=True)
+
+
+def adapter_check(card: str) -> None:
+    """``to_detector_input`` on CUDA CHW tensors (RGB u8, LA u16): the
+    result stays on the card, equals the CPU adapter's, and
+    ``detect_adapted`` on it gives the tags of ``detect``."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.adapters import detect_adapted, to_detector_input
+
+    img = read_png(DATA / "two_boards.png")
+    chw = torch.from_numpy(img).cuda().permute(2, 0, 1)
+    la16 = torch.from_numpy(np.stack([img[..., 0].astype(np.uint16) * 257] * 2))
+    for x in (chw, la16.view(torch.int16).cuda().view(torch.uint16)):
+        got = to_detector_input(x)
+        want = to_detector_input(x.view(torch.int16).cpu().view(torch.uint16)
+                                 if x.dtype == torch.uint16 else x.cpu())
+        if got.device != x.device or not got.is_contiguous():
+            raise AssertionError(f"to_detector_input {x.dtype}: on {got.device}")
+        if not torch.equal(got.view(torch.uint8).cpu(), want.view(torch.uint8)):
+            raise AssertionError(f"to_detector_input {x.dtype}: differs from the CPU's")
+    det = TagDetector("t36h11", device="cuda")
+    tags = detect_adapted(det, chw)
+    if tags != det.detect(img) or len(tags) != GOLDEN["two_boards"]:
+        raise AssertionError(f"detect_adapted on a CUDA CHW tensor: {len(tags)} tags")
+    print(f"ingest to_detector_input: CUDA CHW RGB u8 and LA u16 stay on {chw.device}, "
+          f"= the CPU adapter; detect_adapted {len(tags)} tags = detect [{card}]",
+          flush=True)
+
+
+def phase_ingest(card: str, batch: int) -> tuple[dict, dict]:
+    """Phase 8, ingest and multi-device: ``detect_stream`` over 4 numpy
+    batches of two_boards (RGB), EuRoC (u8) and TUM_VI (u16), with the
+    search on its worker and inline (the detect slowed, so the side stream
+    races ahead), every batch bit-equal to ``detect_batch``; the prefetch's
+    enqueue under sync-debug "error"; ``to_detector_input`` on CUDA
+    tensors; ``detect_batch_sharded`` (exact, turbo drain, turbo NMS) on
+    ``[cuda:0] * 2`` and ``* 4``, ``MultiCameraDetector`` on a ``camera``
+    mesh of ``[cuda:0] * 2`` and ``PipelineParallelDetector`` on ``[cuda:0,
+    cuda:0]``, each bit-equal to ``detect_batch``; ``cuda:1`` where a second
+    card is visible. Returns (the launches of the new entry points' held
+    runs, counted from 0 before each and summed; ms records)."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.parallel.pipeline_parallel import PipelineParallelDetector
+    from aprilgrid_tpu_torch.parallel.sharding import detect_batch_sharded, make_mesh
+    from aprilgrid_tpu_torch.parallel.streaming import MultiCameraDetector, detect_stream
+
+    launches = dict.fromkeys(INGEST_KEYS, 0)
+
+    def held(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in INGEST_KEYS:
+            launches[k] += LAUNCHES[k]
+        return out
+
+    t_phase = time.perf_counter()
+    det = TagDetector("t36h11", device="cuda")
+    streams = {n: _ingest_batches(read_png(DATA / f"{n}.png"), batch, 4)
+               for n in ("two_boards", "EuRoC", "TUM_VI")}
+    ingest_sync_check(card, [b[0] for b in streams.values()])
+    for name, batches in streams.items():
+        refs = [det.detect_batch(b) for b in batches]
+        for what, env in (("search on its worker", "1"), ("search inline", "0")):
+            with _env(AG_SEARCH_ASYNC=env):
+                got = held(lambda: list(detect_stream(det, iter(batches), prefetch=2)))
+            if got != refs:
+                raise AssertionError(f"detect_stream {name} ({what}) differs from "
+                                     "detect_batch")
+        print(f"ingest detect_stream {name} {batches[0].dtype} 4 x b{batch}: every batch "
+              f"bit-equal to detect_batch ({sum(len(t) for r in refs for t in r)} tags), "
+              f"the search on its worker and inline [{card}]", flush=True)
+    adapter_check(card)
+
+    dev = torch.device("cuda", 0)
+    frames = streams["two_boards"][1]
+    rec: dict = {}
+    for label, dec, nms in RUNTIME_MODES:
+        with _env(**({"AG_TURBO_NMS": nms} if nms else {})):
+            sdet = TagDetector("t36h11", device="cuda", decimate=dec)
+            ref = sdet.detect_batch(frames)
+            for n in (2, 4):
+                mesh = make_mesh({"data": n}, [dev] * n)
+                if held(lambda: detect_batch_sharded(sdet, frames, mesh)) != ref:
+                    raise AssertionError(f"detect_batch_sharded {label} {n} shards "
+                                         "differs from detect_batch")
+                if label == "exact":
+                    rec[f"sharded_{n}_ms"] = _median_ms(
+                        lambda: detect_batch_sharded(sdet, frames, mesh))
+        print(f"ingest detect_batch_sharded {label} two_boards b{batch}: [cuda:0] * 2 "
+              f"and * 4 bit-equal to detect_batch [{card}]", flush=True)
+    ref = det.detect_batch(frames)
+    cams = MultiCameraDetector(det, make_mesh({"camera": 2}, [dev] * 2))
+    got = held(lambda: cams.detect(frames.reshape((2, batch // 2) + frames.shape[1:])))
+    if got != [ref[:batch // 2], ref[batch // 2:]]:
+        raise AssertionError("MultiCameraDetector on a camera mesh differs from detect_batch")
+    pp = PipelineParallelDetector(det, devices=[dev, dev])
+    pbatches = streams["two_boards"][:3]
+    got = held(lambda: list(pp.detect_batches(pbatches)))
+    if got != [det.detect_batch(b) for b in pbatches]:
+        raise AssertionError("PipelineParallelDetector differs from detect_batch")
+    print(f"ingest MultiCameraDetector (camera mesh [cuda:0] * 2, 2 x {batch // 2} frames) "
+          f"and PipelineParallelDetector ([cuda:0, cuda:0], 3 x b{batch}) bit-equal to "
+          f"detect_batch [{card}]", flush=True)
+    rec["detect_batch_ms"] = _median_ms(lambda: det.detect_batch(frames))
+    rec["pipeline_ms"] = _median_ms(lambda: list(pp.detect_batches([frames])))
+    if torch.cuda.device_count() > 1:
+        two = [dev, torch.device("cuda", 1)]
+        if held(lambda: detect_batch_sharded(det, frames, make_mesh({"data": 2}, two))) != ref:
+            raise AssertionError("detect_batch_sharded on [cuda:0, cuda:1] differs")
+        pp2 = PipelineParallelDetector(det, devices=two)
+        if held(lambda: list(pp2.detect_batches([frames]))) != [ref]:
+            raise AssertionError("PipelineParallelDetector on [cuda:0, cuda:1] differs")
+        print(f"ingest cuda:1: detect_batch_sharded and PipelineParallelDetector on "
+              f"[cuda:0, cuda:1] bit-equal to detect_batch [{card}]", flush=True)
+    else:
+        print("ingest cuda:1: one card visible, the launches on a second card (the "
+              "device guard) were not run", flush=True)
+    print(f"ingest ms two_boards b{batch} exact, median of 3 on the host clock (one card: "
+          f"shards and stages run one after another): {json.dumps(rec)} [{card}]",
+          flush=True)
+    print(f"launches ingest and multi-device: {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2648,6 +2854,10 @@ def main() -> int:
                     help="build, then only phase 7: the peak merge bit-equal on the "
                          "four images and end to end, the row-sharding modes on "
                          "windows, the sharded front-ends on the 4K frame")
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="build, then only phase 8: detect_stream, the adapters, "
+                         "detect_batch_sharded, MultiCameraDetector and "
+                         "PipelineParallelDetector bit-equal to detect_batch")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -2680,6 +2890,9 @@ def main() -> int:
         launches, srec = phase_sharded(card, batch=32)
         print(json.dumps({"kernels": sharded_rows(launches, srec)}))
         return 0
+    if args.ingest_only:
+        phase_ingest(card, batch=32)
+        return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
         for name in GOLDEN:
@@ -2710,6 +2923,8 @@ def main() -> int:
     for k, n in phase_plane_path(card, batch=32).items():
         launches[k] += n
     sharded_launches, srec = phase_sharded(card, batch=32)
+    for k, n in phase_ingest(card, batch=32)[0].items():
+        launches[k] += n
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
     jp = "aprilgrid_tpu/pallas/"

@@ -41,7 +41,9 @@ def test_import_pulls_in_no_jax():
         "aprilgrid_tpu_torch.kernels.frontend, aprilgrid_tpu_torch.kernels.cluster, "
         "aprilgrid_tpu_torch.ops.cluster, aprilgrid_tpu_torch.pipeline, "
         "aprilgrid_tpu_torch.bench, aprilgrid_tpu_torch.utils.profiling, "
-        "aprilgrid_tpu_torch.utils.images, aprilgrid_tpu_torch.parallel.sharding\n"
+        "aprilgrid_tpu_torch.utils.images, aprilgrid_tpu_torch.parallel.sharding, "
+        "aprilgrid_tpu_torch.adapters, aprilgrid_tpu_torch.parallel.streaming, "
+        "aprilgrid_tpu_torch.parallel.pipeline_parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
@@ -58,6 +60,43 @@ def test_no_source_names_jax_or_the_jax_package():
         text = p.read_text()
         assert not re.search(r"\bjax\b", text), p
         assert not re.search(r"\baprilgrid_tpu\.", text), p
+
+
+def test_every_launch_makes_its_tensors_device_current(monkeypatch):
+    """``kernels/_lib.py::launch``, through which every wrapper launches,
+    enters ``torch.cuda.device(t.device)`` around the library call and
+    passes that device's current stream last (a card other than the
+    thread's current one, which no single-card run can show)."""
+    from types import SimpleNamespace
+
+    from aprilgrid_tpu_torch.kernels import _lib
+
+    seen = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            seen.append(("enter", self.dev))
+
+        def __exit__(self, *exc):
+            seen.append(("exit", self.dev))
+
+    def entry(*args):
+        seen.append(("call", args))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=(str(dev), 7)))
+    monkeypatch.setattr(_lib, "lib", lambda: SimpleNamespace(ag_front_kernel=entry))
+    t = torch.empty(1, device="meta")
+    assert _lib.launch("front_kernel", t, 1, 2) == 0
+    assert seen == [("enter", t.device), ("call", (1, 2, ("meta", 7))), ("exit", t.device)]
+    sources = [p.read_text() for p in (PKG / "kernels").glob("*.py")]
+    assert sum(s.count("launch(") for s in sources) >= 10
+    assert not any("lib()." in s for s in sources)
 
 
 def test_detector_without_gpu_raises(monkeypatch):

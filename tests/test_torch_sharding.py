@@ -3,13 +3,27 @@ on a mesh of CPU devices, held against the port's own single-device path,
 which the other test files hold against the JAX package: the stencil and
 plain front-ends, the kernel front-ends (exact and turbo) slot for slot, the
 row-sharding mode of each kernel on a window against the whole frame, the
-mesh and shape errors, and the claim context's bound on a tall blob."""
+mesh and shape errors, and the claim context's bound on a tall blob. Then
+the data- and pipeline-parallel detectors (``detect_batch_sharded``,
+parallel/pipeline_parallel.py) on CPU meshes: bit for bit the port's own
+``detect_batch``, and tag-ID sets equal with corners within 1e-3 px of the
+JAX functions on the JAX package's CPU mesh."""
 
 import numpy as np
 import pytest
 import torch
 
+from aprilgrid_tpu.detector import TagDetector as JaxDetector
 from aprilgrid_tpu.oracle.numpy_ref import load_image
+from aprilgrid_tpu.parallel.pipeline_parallel import (
+    PipelineParallelDetector as JaxPipelineParallel,
+)
+from aprilgrid_tpu.parallel.sharding import (
+    detect_batch_sharded as jax_detect_batch_sharded,
+    make_mesh as jax_make_mesh,
+)
+from aprilgrid_tpu_torch import TagDetector
+from aprilgrid_tpu_torch.parallel import sharding as tsharding
 from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
 from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade_raw
 from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate, pad_raw
@@ -17,8 +31,10 @@ from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw
 from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
 from aprilgrid_tpu_torch.ops.gray import to_luma
 from aprilgrid_tpu_torch.ops.rochade import Saddles
+from aprilgrid_tpu_torch.parallel.pipeline_parallel import PipelineParallelDetector
 from aprilgrid_tpu_torch.parallel.sharding import (
     CTX,
+    detect_batch_sharded,
     frontend_rows_sharded,
     make_mesh,
     row_windows,
@@ -274,3 +290,109 @@ def test_claim_context_bound_on_a_tall_blob():
     gp = got.p[got.valid].tolist()
     assert [80.0, 192.0] in wp and [180.0, 192.0] in wp
     assert [180.0, 192.0] in gp and [80.0, 192.0] not in gp
+
+
+# -- whole detects over a mesh: data and pipeline parallelism ---------------
+
+@pytest.fixture(scope="module")
+def det():
+    return TagDetector("t36h11", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jdet():
+    return JaxDetector("t36h11")
+
+
+@pytest.fixture(scope="module")
+def euroc4(data_dir):
+    """EuRoC x4 with a blank third frame: a frame's result must stay its own."""
+    img = load_image(str(data_dir / "EuRoC.png"))
+    return np.stack([img, img, np.zeros_like(img), img])
+
+
+@pytest.fixture(scope="module")
+def euroc4_ref(det, euroc4):
+    return det.detect_batch(euroc4)
+
+
+def _same_tags(got: dict, want: dict):
+    """ID sets equal, corners within 1e-3 px."""
+    assert set(got) == set(want)
+    for tid in got:
+        assert np.abs(np.asarray(got[tid]) - np.asarray(want[tid])).max() <= 1e-3, tid
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_detect_batch_sharded_matches_detect_batch_and_jax(det, jdet, euroc4, euroc4_ref, n):
+    got = detect_batch_sharded(det, euroc4, make_mesh({"data": n}, [CPU] * n))
+    assert got == euroc4_ref
+    assert [len(t) for t in got] == [36, 36, 0, 36]
+    want = jax_detect_batch_sharded(jdet, euroc4, jax_make_mesh({"data": 4}))
+    for g, w in zip(got, want):
+        _same_tags(g, w)
+
+
+def test_turbo_detect_batch_sharded_matches_detect_batch_and_jax(data_dir):
+    """The turbo mode on the 540x960 crop x4 (JAX test_decimate.py::
+    test_turbo_detect_batch_sharded)."""
+    img = np.ascontiguousarray(load_image(str(data_dir / "two_boards.png"))[:540, :960])
+    imgs = np.stack([img] * 4)
+    tdet = TagDetector("t36h11", device="cpu", decimate=True)
+    got = detect_batch_sharded(tdet, imgs, make_mesh({"data": 4}, [CPU] * 4))
+    ref = tdet.detect_batch(imgs)
+    assert got == ref and all(len(t) > 10 for t in got)
+    want = jax_detect_batch_sharded(JaxDetector("t36h11", mode="hybrid", decimate=True),
+                                    imgs, jax_make_mesh({"data": 4}))
+    for g, w in zip(got, want):
+        _same_tags(g, w)
+
+
+def test_detect_batch_sharded_puts_each_shard_on_its_device(det, euroc4, euroc4_ref,
+                                                            monkeypatch):
+    """One chunk a shard: the put hook hands each shard's frames, and only
+    those, to its device of the axis (the second of a 2-D mesh's axes)."""
+    devs = [torch.device("cpu", i) for i in range(4)]
+    placed = []
+
+    def to(t, dev):
+        placed.append((int(t.shape[0]), dev))
+        return t
+
+    monkeypatch.setattr(tsharding, "_to", to)
+    mesh = make_mesh({"camera": 2, "data": 2}, devs)
+    assert detect_batch_sharded(det, euroc4, mesh) == euroc4_ref
+    assert placed == [(2, devs[0]), (2, devs[1])]
+
+
+def test_detect_batch_sharded_rejects_a_batch_that_does_not_split(det, euroc4):
+    with pytest.raises(ValueError, match="does not split over 2"):
+        detect_batch_sharded(det, euroc4[:3], make_mesh({"data": 2}, [CPU] * 2))
+
+
+def test_pipeline_parallel_matches_detect_batch_and_jax(det, jdet, data_dir):
+    """Micro-batches of 2 and 3 EuRoC frames (tests/test_sharding.py::
+    test_pipeline_parallel_matches_hybrid) on [cpu, cpu]."""
+    import jax
+
+    img = load_image(str(data_dir / "EuRoC.png"))
+    batches = [np.stack([img] * 2), np.stack([img, np.zeros_like(img), img])]
+    got = list(PipelineParallelDetector(det, devices=[CPU, CPU]).detect_batches(batches))
+    assert got == [det.detect_batch(b) for b in batches]
+    assert [[len(t) for t in r] for r in got] == [[36, 36], [36, 0, 36]]
+    want = list(JaxPipelineParallel(jdet, devices=jax.devices()[:2]).detect_batches(batches))
+    for gb, wb in zip(got, want):
+        for g, w in zip(gb, wb):
+            _same_tags(g, w)
+
+
+def test_pipeline_parallel_requires_the_hybrid_mode_and_devices(monkeypatch):
+    """``mode="xla"`` cannot be built yet, so the check is shown on a
+    detector whose mode says so; without a card there is no default."""
+    other = TagDetector("t36h11", device="cpu")
+    other.mode = "xla"
+    with pytest.raises(ValueError, match="hybrid"):
+        PipelineParallelDetector(other, devices=[CPU, CPU])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineParallelDetector(TagDetector("t36h11", device="cpu"))
