@@ -9,7 +9,11 @@ mode on the seven images the reference benches (EuRoC, TUM_VI, right,
 r45, top, iphone, two_boards), the turbo mode with the NMS and with the
 drain extraction on the two 1080p ones. Frames lie on the device, as in
 the JAX bench (``--host-frames`` passes a numpy batch, to show the
-upload of the raw frames).
+upload of the raw frames). ``--modes xla`` adds the xla mode (the whole
+detect on the device, ``TagDetector(mode="xla")``) at batch 16 unless
+``BENCH_BATCH`` is set, as the JAX bench's ``BENCH_MODE=xla``; it is a
+record beside the hybrid cells, with the host's reads of the search's
+loop conditions per call (``search_syncs``), and has no timeline.
 
 Per cell: the golden tag count asserted on every frame; ID parity and
 ``corner_max_px`` of every frame against the port's own CPU run of one
@@ -65,8 +69,9 @@ from .utils.images import DATA, GOLDEN, read_png
 from .utils.profiling import device_busy
 
 TURBO_IMAGES = ("iphone", "two_boards")   # the turbo mode's frames: >= 2 MP
-# mode -> (decimate, AG_TURBO_NMS)
+# mode -> (decimate, AG_TURBO_NMS); the default --modes
 MODES = {"exact": (False, None), "turbo-nms": (True, "1"), "turbo-drain": (True, "0")}
+XLA_BATCH = 16   # the xla mode's default batch (the JAX bench's BENCH_MODE=xla)
 
 
 def card_name() -> str | None:
@@ -132,15 +137,18 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
                host_frames: bool, timeline: bool, trace: bool, refs: dict) -> dict:
     """One cell: warm-up + checks, ``reps`` timed calls, optional timeline
     and device-busy runs; returns its JSON record."""
-    decimate, nms_env = MODES[mode]
+    from .ops.board import SYNCS
+
+    decimate, nms_env = MODES.get(mode, (False, None))
+    det_mode = "xla" if mode == "xla" else "hybrid"
     if nms_env is not None:
         os.environ["AG_TURBO_NMS"] = nms_env
     try:
         img = read_png(DATA / f"{name}.png")
         if (name, mode) not in refs:
-            refs[name, mode] = TagDetector("t36h11", device="cpu",
+            refs[name, mode] = TagDetector("t36h11", device="cpu", mode=det_mode,
                                            decimate=decimate).detect(img)
-        det = TagDetector("t36h11", device=device, decimate=decimate)
+        det = TagDetector("t36h11", device=device, mode=det_mode, decimate=decimate)
         host = np.ascontiguousarray(np.broadcast_to(img, (batch,) + img.shape))
         frames = host if host_frames else torch.from_numpy(host).to(device)
 
@@ -157,16 +165,19 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
                                  f"golden {GOLDEN[name]}")
         ids_equal, err = _parity(res, refs[name, mode])
         ms = []
+        SYNCS.update(dict.fromkeys(SYNCS, 0))
         for _ in range(reps):
             t0 = time.perf_counter()
             call()
             ms.append((time.perf_counter() - t0) * 1e3)
+        syncs = sum(SYNCS.values()) / reps
         fps = sorted(batch / m * 1e3 for m in ms)
         chunk = os.environ.get("AG_CHUNK")
         rec = {
             "cell": f"{name} {mode}", "image": name, "shape": list(img.shape),
             "mode": mode, "batch": batch,
-            "chunk": int(chunk) if chunk else _default_chunk(*img.shape[:2]),
+            "chunk": None if det_mode == "xla" else (
+                int(chunk) if chunk else _default_chunk(*img.shape[:2])),
             "frames_on": "host" if host_frames else "device", "reps": reps,
             "frames_per_s": {"median": statistics.median(fps), "min": fps[0],
                              "max": fps[-1]},
@@ -179,8 +190,9 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
             "device": device, "card": card_name() if device != "cpu" else None,
             "nms_merge": os.environ.get("AG_NMS_MERGE", "0"),
             "saddles_per_frame": saddles_per_frame(img, decimate, device),
+            "search_syncs": syncs,
         }
-        if timeline:
+        if timeline and det_mode == "hybrid":
             os.environ["AG_TIMELINE"] = "1"
             try:
                 t0 = time.perf_counter()
@@ -270,8 +282,8 @@ def main(argv=None) -> int:
                     help="comma-separated golden images (default: all seven; "
                          "two_boards with --stream)")
     ap.add_argument("--modes", default=",".join(MODES),
-                    help="comma-separated modes; the turbo ones run on the 1080p "
-                         "images only")
+                    help="comma-separated modes (exact, turbo-nms, turbo-drain, xla); "
+                         "the turbo ones run on the 1080p images only")
     ap.add_argument("--host-frames", action="store_true",
                     help="pass the batch as a numpy array (the facade uploads it "
                          "chunk by chunk)")
@@ -296,13 +308,18 @@ def main(argv=None) -> int:
                                     args.stream.split(",")):
                 print(json.dumps(rec), flush=True)
         return 0
-    batch = int(os.environ.get("BENCH_BATCH", "128"))
+    env_batch = os.environ.get("BENCH_BATCH")
     refs: dict = {}
     fps: dict = {}
     parity_ok = True
+    batches = set()
     for mode in args.modes.split(","):
+        if mode not in MODES and mode != "xla":
+            raise SystemExit(f"bench: unknown mode {mode!r}")
+        batch = int(env_batch) if env_batch else (XLA_BATCH if mode == "xla" else 128)
+        batches.add(batch)
         for name in (args.images or ",".join(GOLDEN)).split(","):
-            if MODES[mode][0] and name not in TURBO_IMAGES:
+            if MODES.get(mode, (False,))[0] and name not in TURBO_IMAGES:
                 continue
             rec = bench_cell(name, mode, args.device, batch, reps, args.host_frames,
                              args.timeline, args.trace, refs)
@@ -312,7 +329,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "geomean_frames_per_s": {
             m: math.exp(sum(math.log(f) for f in v) / len(v)) for m, v in fps.items()},
-        "cells": sum(len(v) for v in fps.values()), "batch": batch,
+        "cells": sum(len(v) for v in fps.values()), "batch": sorted(batches),
         "parity_ok": parity_ok, "host_cores": os.cpu_count(),
         "device": args.device, "card": card_name() if args.device != "cpu" else None,
     }), flush=True)

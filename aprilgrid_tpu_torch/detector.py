@@ -1,9 +1,10 @@
-"""TagDetector facade — the public detect API, hybrid mode (exact and turbo).
+"""TagDetector facade — the public detect API, hybrid and xla modes (each
+exact and turbo).
 
-Mirrors the reference facade (TagDetector, src/detector.rs:17-23,363-541):
-the dense front-end and the tag decode run on the card through the port's
-kernels; the board search runs on the host in native C++ (native/). Each
-chunk of a batch goes
+Mirrors the reference facade (TagDetector, src/detector.rs:17-23,363-541).
+In the hybrid mode (the default) the dense front-end and the tag decode
+run on the card through the port's kernels; the board search runs on the
+host in native C++ (native/). Each chunk of a batch goes
 
     front-end -> one device-to-host copy of the packed saddles
     -> board search -> decode -> release decoded saddles -> next pass
@@ -18,6 +19,12 @@ label domain (8K-class) take the plane path
 (pipeline.py::planes_frontend_batch) with a warning; everything after the
 front-end is the same. ``refined_saddle_points`` is the single-image
 front-end (pipeline.py::saddle_frontend), always on the plane path.
+
+In the xla mode the whole detect runs on the device
+(pipeline.py::detect_pipeline_batch, ``detect``: detect_pipeline): the
+same front-end, then the board search as tensor operations
+(ops/search.py) and the decode, for every frame of the batch at once; the
+host reads the fixed-capacity result once and unpacks it.
 """
 
 from __future__ import annotations
@@ -35,7 +42,10 @@ from .config import CONSTANTS, DEFAULT_CAPACITIES, Capacities, DetectorParams, P
 from .families import FamilySpec, TagFamily, get_family
 from .kernels.decode import decode_packed
 from .pipeline import (
+    DetectResult,
     _turbo_nms_env,
+    detect_pipeline,
+    detect_pipeline_batch,
     frontend_packed,
     saddle_frontend,
     turbo_fast_path_ok,
@@ -105,9 +115,11 @@ class TagDetector:
     ``pipeline.PLANE_PIXELS`` pixels; its int32 labels end at 2^31 pixels
     per frame.
 
-    Only the hybrid mode exists so far: ``mode="xla"`` raises
-    NotImplementedError (ROADMAP.md lists the slice that brings it), any
-    other mode ValueError, as the JAX facade does."""
+    ``mode``: "hybrid" (the default; device front-end and decode, native
+    C++ board search on the host) or "xla" (the whole detect on the
+    device, the board search as tensor operations; it needs no host
+    toolchain). Both give the same tags. Any other mode raises ValueError,
+    as the JAX facade does."""
 
     def __init__(
         self,
@@ -121,11 +133,6 @@ class TagDetector:
     ) -> None:
         if mode not in ("hybrid", "xla"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "xla":
-            raise NotImplementedError(
-                f"mode={mode!r}: only the hybrid mode is ported; the "
-                "on-device board search is queued in ROADMAP.md"
-            )
         if decimate not in (False, True, "auto"):
             raise ValueError(f"decimate must be False/True/'auto', got {decimate!r}")
         self.device = torch.device(device)
@@ -146,7 +153,8 @@ class TagDetector:
         # AG_TIMELINE=1: the host timeline of the last detect call
         self.last_timeline: list | None = None
         self._upload_streams: dict = {}
-        native.build()  # the hybrid path needs the host search: raise now
+        if mode == "hybrid":
+            native.build()  # the hybrid path needs the host search: raise now
 
     def _use_decimate(self, h: int, w: int) -> bool:
         """Resolve the ``decimate`` policy for an (h, w) frame: "auto"
@@ -170,16 +178,36 @@ class TagDetector:
 
     def detect(self, img) -> dict[int, list[tuple[float, float]]]:
         """Detect tags in one image; returns {tag_id: 4 corners} with the
-        reference's canonical corner ordering (src/detector.rs:505-540)."""
-        return self._detect_hybrid(_as_tensor(img)[None])[0]
+        reference's canonical corner ordering (src/detector.rs:505-540).
+        In the xla mode the image goes through the single-image front-end
+        (``pipeline.detect_pipeline``), as the JAX facade's does."""
+        if self.mode == "hybrid":
+            return self._detect_hybrid(_as_tensor(img)[None])[0]
+        if self.params.max_num_of_boards == 0:
+            return {}
+        frame, _held = self._upload(_as_tensor(img))
+        res = detect_pipeline(
+            frame, self.spec, self.params, self.consts, self.caps,
+            decimate=self._use_decimate(int(frame.shape[0]), int(frame.shape[1])),
+        )
+        res = DetectResult(*(_to_numpy(t) for t in res))
+        _warn_flags(res.flags[None])
+        return _unpack_result(res)
 
     def detect_batch(
         self, imgs, chunk: int | None = None
     ) -> list[dict[int, list[tuple[float, float]]]]:
         """Detect over a batch of same-shape frames (axis 0). ``chunk``
-        sizes the sub-batches (default: the ``AG_CHUNK`` environment
-        variable if set, else ``_default_chunk``)."""
-        return self._detect_hybrid(_as_tensor(imgs), chunk=chunk)
+        sizes the hybrid runtime's sub-batches (default: the ``AG_CHUNK``
+        environment variable if set, else ``_default_chunk``); the xla mode
+        ignores it and runs the batch as one."""
+        if self.mode == "hybrid":
+            return self._detect_hybrid(_as_tensor(imgs), chunk=chunk)
+        imgs = _as_tensor(imgs)
+        if int(imgs.shape[0]) == 0 or self.params.max_num_of_boards == 0:
+            return [{} for _ in range(int(imgs.shape[0]))]
+        frames, _held = self._upload(imgs)
+        return _unpack_batch(self._detect_xla(frames))
 
     def refined_saddle_points(self, img) -> list[Saddle]:
         """Front-end only (reference: src/detector.rs:408-446): the
@@ -198,6 +226,28 @@ class TagDetector:
                    theta=float(theta[i]), phi=float(phi[i]))
             for i in np.flatnonzero(valid)
         ]
+
+    def _upload(self, imgs: torch.Tensor):
+        """(``imgs`` on the detector's device, the upload to hold until the
+        detect has read its result): a host batch bound for the card goes
+        through pinned staging on the upload stream (``_HostUpload``, which
+        holds the pinned source), anything else through ``.to``."""
+        if self.device.type == "cuda" and not imgs.is_cuda:
+            up = _HostUpload(imgs, self.device, self._upload_stream(self.device))
+            return up.tensor(), up
+        return imgs.to(self.device), None
+
+    def _detect_xla(self, frames: torch.Tensor) -> DetectResult:
+        """The xla mode's detect of a batch on its device
+        (``pipeline.detect_pipeline_batch``), read back as numpy arrays. The
+        turbo extraction variant follows the environment's policy, as the
+        JAX facade's xla mode leaves it."""
+        h, w = int(frames.shape[1]), int(frames.shape[2])
+        res = detect_pipeline_batch(
+            frames, self.spec, self.params, self.consts, self.caps,
+            decimate=self._use_decimate(h, w),
+        )
+        return DetectResult(*(_to_numpy(t) for t in res))
 
     def _upload_stream(self, device: torch.device):
         """The side stream that host batches bound for ``device`` are copied
@@ -597,6 +647,27 @@ def _as_tensor(imgs) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(imgs))
 
 
+def _unpack_result(res: DetectResult) -> dict[int, list[tuple[float, float]]]:
+    """One frame's fixed-capacity result (numpy) as {tag_id: 4 corners}."""
+    out: dict[int, list[tuple[float, float]]] = {}
+    for i in np.flatnonzero(res.valid):
+        out[int(res.ids[i])] = [
+            (float(res.corners[i, j, 0]), float(res.corners[i, j, 1]))
+            for j in range(4)
+        ]
+    return out
+
+
+def _unpack_batch(res: DetectResult) -> list[dict[int, list[tuple[float, float]]]]:
+    """A batch's result (numpy, leading (B,) axis): the capacity warnings,
+    then one dict per frame."""
+    _warn_flags(res.flags)
+    return [
+        _unpack_result(DetectResult(res.ids[i], res.corners[i], res.valid[i], None))
+        for i in range(res.ids.shape[0])
+    ]
+
+
 def _default_chunk(h: int, w: int) -> int:
     """Frames per chunk for an (h, w) frame: 32 at 1080p, scaled at a
     constant pixel budget and rounded down to a power of two in [16, 64]
@@ -630,6 +701,21 @@ def _warn_counters(cnts: np.ndarray) -> None:
             stacklevel=3,
         )
     if (cnts[:, 2] > 0).any():
+        warnings.warn(
+            "saddle capacity (max_saddles) filled on at least one frame; "
+            "excess saddles were truncated — raise Capacities.max_saddles",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def _warn_flags(flags: np.ndarray) -> None:
+    """Surface the xla mode's DetectResult flags ((B, 2): [saddle slots
+    full, kNN-pool prunes]) as warnings. The prune counter is not warned
+    on: small nonzero counts occur on normal scenes (degenerate candidate
+    quads extrapolate unreachable targets, see
+    ops/board.py::propose_expansions); it stays in the flags for audits."""
+    if (flags[:, 0] > 0).any():
         warnings.warn(
             "saddle capacity (max_saddles) filled on at least one frame; "
             "excess saddles were truncated — raise Capacities.max_saddles",

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..families import FamilySpec, rotation_permutation
+from .compact import device_table
 from .geometry import rust_round
 
 
@@ -159,7 +160,7 @@ def _decode_pre(
         for k in range(8):
             acc = acc + float(pinv[p, k]) * b[..., k]
         params.append(acc[..., None])
-    grid = torch.from_numpy(_bit_grid(spec.edge, spec.border)).to(dev)
+    grid = device_table(_bit_grid, (spec.edge, spec.border), dev)
     gx, gy = grid[:, 0], grid[:, 1]
     px = params[0] * gx + params[1] * gy + params[2]  # (B, T, nb)
     py = params[3] * gx + params[4] * gy + params[5]
@@ -185,7 +186,7 @@ def _decode_pre(
     bits_ok = invalid <= max_invalid_bit
 
     lsb = torch.flip(bits_msb, dims=(-1,)).to(torch.float32)
-    perms = torch.from_numpy(_rot_perms(spec.edge)).to(dev)  # (4, nb)
+    perms = device_table(_rot_perms, (spec.edge,), dev)     # (4, nb)
     rots = lsb[..., perms]                                   # (B, T, 4, nb)
     gates = torch.stack([corners_ok, sample_ok, contrast_ok & bits_ok], -1)
     return rots, gates

@@ -51,6 +51,7 @@ real board is a few rows tall (the golden scenes' tallest: 29 rows).
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -138,10 +139,14 @@ def detect_batch_sharded(detector, imgs, mesh: Mesh, axis: str = "data"
     capacity step (24/48/96 quad slots, from a chunk's largest count)
     away from the single device's; the decoded rows stay the same.
 
-    ``B % n_shards != 0`` raises ``ValueError``. The on-device search
-    (``mode="xla"``) is not ported yet (ROADMAP.md A.2), so neither is its
-    branch here."""
-    from ..detector import _as_tensor
+    In the xla mode each shard's frames run the whole on-device detect
+    (``pipeline.detect_pipeline_batch``) on the shard's device, one host
+    thread a shard (the search reads its loop conditions on the host), and
+    the results come back in batch order. A frame's result does not depend
+    on the frames beside it, so they equal ``detect_batch``'s.
+
+    ``B % n_shards != 0`` raises ``ValueError``."""
+    from ..detector import DetectResult, _as_tensor, _unpack_batch
 
     imgs = _as_tensor(imgs)
     devs = mesh.along(axis)
@@ -154,7 +159,15 @@ def detect_batch_sharded(detector, imgs, mesh: Mesh, axis: str = "data"
     def put(frames: torch.Tensor, lo: int) -> torch.Tensor:
         return _to(frames, devs[lo // per])
 
-    return detector._detect_hybrid(imgs, chunk=per, put=put)
+    if detector.mode == "hybrid":
+        return detector._detect_hybrid(imgs, chunk=per, put=put)
+    if b == 0 or detector.params.max_num_of_boards == 0:
+        return [{} for _ in range(b)]
+    with ThreadPoolExecutor(max_workers=len(devs)) as pool:
+        parts = list(pool.map(
+            lambda i: detector._detect_xla(put(imgs[i * per:(i + 1) * per], i * per)),
+            range(len(devs))))
+    return _unpack_batch(DetectResult(*(np.concatenate(f) for f in zip(*parts))))
 
 
 def _halo_exchange_rows(bands: list[torch.Tensor], halo: int) -> list[torch.Tensor]:

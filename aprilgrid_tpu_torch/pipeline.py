@@ -34,6 +34,14 @@ front-end behind ``refined_saddle_points``, takes it for every frame:
 
 ``frontend_packed`` packs the saddles and the capacity counters into one
 (B, N+1, 4) array so the host reads them with a single copy.
+
+``detect_pipeline_batch`` and ``detect_pipeline`` are the whole detect on
+the device (the facade's ``mode="xla"``): the batch front-end (or the
+single-image one), then ``detect_tail`` — ``max_num_of_boards`` passes of
+the on-device board search (``ops/search.py``) and the decode
+(``ops/decode.py::decode_quads_batch``, whose table scan is the
+``hamming_scan`` kernel), each pass releasing the saddles of its decoded
+tags.
 """
 
 from __future__ import annotations
@@ -41,18 +49,23 @@ from __future__ import annotations
 import functools
 import os
 import warnings
+from typing import NamedTuple
 
 import torch
 
 from .config import Capacities, DetectorParams, PipelineConstants
+from .families import FamilySpec
 from .kernels.cluster import _CAPF, cluster_rochade_raw, saddles_from_candidates
 from .kernels.frontend import front_kernel, front_kernel_decimate, fused_frontend, pad_raw
 from .kernels.nms import cells_to_fields, nms_extract_raw
 from .kernels.refine import sparse_refine_raw
 from .ops.cluster import cluster_centroids_bounded
+from .ops.compact import nonzero_sized, take
+from .ops.decode import decode_quads_batch
 from .ops.frontend import decimate2
 from .ops.gray import as_int32, to_luma_batch
 from .ops.rochade import Saddles, filter_and_compact, rochade_refine
+from .ops.search import find_best_board
 
 
 # Pixels one piece of a plane-path batch may hold. Sixteen 4100 x 4100 RGB
@@ -386,3 +399,114 @@ def frontend_packed(imgs, params, consts, caps, decimate=False, nms=None):
     )
     crow = torch.cat([counters, torch.zeros_like(counters[:, :1])], dim=1)
     return torch.cat([packed, crow[:, None, :]], dim=1), luma8
+
+
+class DetectResult(NamedTuple):
+    """Fixed-capacity detection output of the on-device detect; the host
+    unpacks it to {id: corners}. Leading (B,) axis (none from
+    ``detect_pipeline``); T = ``max_num_of_boards`` x the decode capacity."""
+
+    ids: torch.Tensor      # (B, T) int32, -1 where invalid
+    corners: torch.Tensor  # (B, T, 4, 2) float32
+    valid: torch.Tensor    # (B, T) bool
+    # (B, 2) f32 capacity audit [saddle slots full, kNN-pool prunes]:
+    # non-zero means the fixed-capacity pipeline MAY diverge from the
+    # reference on this frame; the facade warns on the first
+    flags: torch.Tensor
+
+
+def detect_tail(
+    saddles: Saddles,
+    luma8: torch.Tensor,
+    spec: FamilySpec,
+    params: DetectorParams,
+    consts: PipelineConstants,
+    caps: Capacities,
+    true_shape: tuple[int, int] | None = None,
+    slots_full: torch.Tensor | None = None,
+) -> DetectResult:
+    """``max_num_of_boards`` rounds of board search + decode per frame,
+    removing the saddles of successfully decoded tags between rounds
+    (src/detector.rs:510-538). ``saddles`` (B, N) and ``luma8`` (B, Hp, Wp),
+    padded when ``true_shape`` gives the real (h, w); ``slots_full`` (B,),
+    the front-end's saddle capacity audit, goes into ``flags``."""
+    bsz, n = saddles.valid.shape
+    dev = saddles.p.device
+    alive = saddles.valid
+    g2 = (2 * caps.grid_radius + 1) ** 2
+    # the placed cells are compacted to the decode capacity first (a real
+    # board places <= ~66 of the G2 cells); overflow rides the audit
+    dcap = min(g2, 2 * caps.max_tags)
+    pruned = torch.zeros(bsz, dtype=torch.float32, device=dev)
+    out = []
+    for _ in range(params.max_num_of_boards):
+        res = find_best_board(
+            saddles.p, saddles.theta, alive,
+            params.tag_spacing_ratio, caps.grid_radius, consts.quad_nn,
+            caps.max_quads, caps.max_boards, caps.seeds_per_group,
+            caps.max_attempts, consts.max_seeds, consts.early_exit_score,
+            caps.knn_pool,
+        )
+        tag_valid = res.board.placed & res.found[:, None]          # (B, G2)
+        sel = nonzero_sized(tag_valid, dcap, g2)
+        live = sel < g2
+        quad_idx = take(res.board.cell_quad, sel.clamp(max=g2 - 1)).long()  # (B, dcap, 4)
+        pruned = pruned + (tag_valid.sum(-1) - live.sum(-1)).to(torch.float32)
+        quad_pos = take(saddles.p, quad_idx.clamp(min=0))          # (B, dcap, 4, 2)
+        decoded = decode_quads_batch(
+            luma8, quad_pos, live, spec, consts.decode_margin,
+            consts.valid_brightness_threshold, consts.max_invalid_bit,
+            consts.min_contrast, true_shape=true_shape,
+        )
+        out.append(decoded)
+        pruned = pruned + res.board.pruned.to(torch.float32)
+        # only successfully decoded quads release their saddles
+        # (src/detector.rs:517-536)
+        used = torch.where(decoded.valid[..., None], quad_idx, n).reshape(bsz, -1)
+        alive = torch.cat([alive, alive[:, :1]], 1).scatter_(1, used, False)[:, :n]
+
+    full = (torch.zeros(bsz, dtype=torch.float32, device=dev) if slots_full is None
+            else slots_full.to(torch.float32))
+    return DetectResult(
+        ids=torch.cat([d.ids for d in out], 1),
+        corners=torch.cat([d.corners for d in out], 1),
+        valid=torch.cat([d.valid for d in out], 1),
+        flags=torch.stack([full, pruned], 1),
+    )
+
+
+def detect_pipeline(
+    img: torch.Tensor,
+    spec: FamilySpec,
+    params: DetectorParams,
+    consts: PipelineConstants,
+    caps: Capacities,
+    decimate: bool = False,
+) -> DetectResult:
+    """The whole detect() (src/detector.rs:505-540) of ONE image (H, W[, C])
+    on its device: the single-image front-end (``saddle_frontend``, the
+    plane path), then ``detect_tail``. Returns the result without the
+    batch axis."""
+    saddles, luma8 = saddle_frontend(img, params, consts, caps, decimate)
+    batched = Saddles(*(t[None] for t in saddles))
+    res = detect_tail(batched, luma8[None], spec, params, consts, caps,
+                      slots_full=batched.valid.all(-1))
+    return DetectResult(*(t[0] for t in res))
+
+
+def detect_pipeline_batch(
+    imgs: torch.Tensor,
+    spec: FamilySpec,
+    params: DetectorParams,
+    consts: PipelineConstants,
+    caps: Capacities,
+    decimate: bool = False,
+) -> DetectResult:
+    """The whole detect() of a (B, H, W[, C]) batch on its device: the
+    batch front-end (``saddle_frontend_batch``: the fused kernels, the
+    turbo path with ``decimate``, or the plane path beyond their domain),
+    then ``detect_tail`` on every frame."""
+    hw = (int(imgs.shape[1]), int(imgs.shape[2]))
+    saddles, luma8, _ = saddle_frontend_batch(imgs, params, consts, caps, decimate)
+    return detect_tail(saddles, luma8, spec, params, consts, caps, hw,
+                       slots_full=saddles.valid.all(-1))

@@ -4,7 +4,8 @@
 Drives the port's paths — ``TagDetector(device="cuda").detect_batch``, the
 exact hybrid detector, its turbo mode (``decimate=True``, both extraction
 variants) and the plane path (frames beyond the fused kernels' label
-domain, ``refined_saddle_points``), and the entry points that feed it
+domain, ``refined_saddle_points``), the xla mode (``mode="xla"``, the whole
+detect with the board search on the card), and the entry points that feed it
 (``detect_stream``, ``to_detector_input``, ``detect_batch_sharded``,
 ``MultiCameraDetector``, ``PipelineParallelDetector``) — on the bundled
 golden images at full resolution, after building every kernel from
@@ -76,10 +77,14 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
 6. a line with the cluster entries' per-launch split, then one JSON line
-   with each kernel's launches in phases 3-5, 7 and 8 (counted per path:
+   with each kernel's launches in phases 3-5, 7, 8 and 9 (counted per path:
    zeroed before it, read after it), its error against the plain version,
    its time, the plain version's time and its bound (and, for phase 7's
-   rows, its device ms by torch.profiler);
+   rows, its device ms by torch.profiler); the ``hamming_scan`` row counts
+   and times ``decode_packed``, which carries the scan on the hybrid path,
+   and the ``hamming_scan[standalone]`` row the standalone scan's launches
+   (the xla path's), timed on the rows that path gave it, with its device
+   ms from calls queued behind a busy kernel (CUDA events);
 7. (printed before 6) the NMS kernel's peak merge at m4 and m8 bit-equal to its
    plain version on the four images' half planes at batch 32, with the
    device split of m0/m4/m8, then ``detect_batch`` in the turbo NMS mode
@@ -104,7 +109,20 @@ Phases (a failing phase raises, so the script exits non-zero):
    * 2`` and ``PipelineParallelDetector`` on ``[cuda:0, cuda:0]``, each
    bit-equal to ``detect_batch`` (and on ``[cuda:0, cuda:1]`` where a
    second card is visible, else a line says it was not run); their ms
-   beside ``detect_batch``'s on the same b32 batch, as a record.
+   beside ``detect_batch``'s on the same b32 batch, as a record;
+9. (printed before 6) the xla mode: ``detect_batch`` at batch 16 on the
+   four golden images — the golden count on every frame, ID sets equal to
+   the hybrid's on the same batch with corners within 1e-4 px, the first
+   frame equal to the port's CPU xla run; ``detect`` (one image, the plane
+   path) on two_boards; ``decimate=True`` on iphone and two_boards against
+   the hybrid turbo's drain variant (1e-3 px); ``detect_batch_sharded`` on
+   ``[cuda:0] * 2`` bit-equal to ``detect_batch``; the standalone
+   ``hamming_scan`` on the rows the path gave it, bit-equal to its plain
+   version. Records, with no target: frames/s (median and spread of 5, CUDA
+   events) beside the hybrid's on the same batch, the device ms of the
+   front-end, the search and the decode, the host's reads of the search's
+   loop conditions and all synchronizing calls a batch (sync-debug
+   "warn"), the device-busy share and the peak device memory.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -119,7 +137,8 @@ synthetic check and ``phase_decimate_split``, for work on that kernel;
 ``phase_decode_split``, for work on the decode; ``--runtime-only`` runs
 ``phase_runtime``, for work on the facade's runtime; ``--sharded-only``
 runs phase 7, for work on the merge and the row sharding; ``--ingest-only``
-runs phase 8, for work on streaming and the multi-device detectors).
+runs phase 8, for work on streaming and the multi-device detectors;
+``--xla-only`` runs phase 9, for work on the xla mode).
 """
 
 from __future__ import annotations
@@ -129,6 +148,7 @@ import contextlib
 import json
 import os
 import re
+import statistics
 import sys
 import time
 
@@ -2826,6 +2846,284 @@ def phase_ingest(card: str, batch: int) -> tuple[dict, dict]:
     return launches, rec
 
 
+XLA_KEYS = ("front_kernel", "cluster_rochade_raw", "hamming_scan", "fused_frontend",
+            "front_kernel_decimate", "cluster_rochade_raw[luma_f32]", "sparse_refine_raw")
+
+
+def _tag_gap(got: dict, want: dict) -> float:
+    """Largest corner distance (px) between two results with one ID set."""
+    return max((float(np.abs(np.asarray(got[t]) - np.asarray(want[t])).max())
+                for t in want), default=0.0)
+
+
+def _event_ms(fn, reps: int) -> list:
+    """Device ms of ``reps`` calls, one CUDA event pair around each."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1))
+    return out
+
+
+def _sync_count(fn) -> int:
+    """The synchronizing CUDA calls ``fn`` makes: warnings under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _queued_ms(fn, iters: int = 50) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a busy kernel (an f32 8192^3 matmul), so the card runs
+    them back to back without waiting for the host's enqueue. Raises if the
+    busy kernel ended before the last call was enqueued. (torch.profiler
+    lost the scan's device events late in the smoke: one of ten, or none.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.randn(8192, 8192, device="cuda")
+    busy_end = torch.cuda.Event()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.mm(a, a)
+    busy_end.record()
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    hidden = not busy_end.query()
+    torch.cuda.synchronize()
+    if not hidden:
+        raise AssertionError("the busy kernel ended before the calls were enqueued")
+    return t0.elapsed_time(t1) / iters
+
+
+def xla_split(frames) -> dict:
+    """Device ms of the xla detect's parts on one batch, by CUDA events
+    (mean of 3 after a warm-up): the front-end (``saddle_frontend_batch``),
+    the tail (``detect_tail``: both passes' search and decode) and each
+    pass's decode (``decode_quads_batch`` on the inputs the tail gave it);
+    the search is the tail minus the decodes."""
+    import torch
+
+    from aprilgrid_tpu_torch import pipeline
+    from aprilgrid_tpu_torch.config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from aprilgrid_tpu_torch.families import get_family
+
+    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
+    spec = get_family("t36h11")
+    hw = (int(frames.shape[1]), int(frames.shape[2]))
+    front = _ms(lambda: pipeline.saddle_frontend_batch(frames, *cfg), 3)
+    saddles, luma8, _ = pipeline.saddle_frontend_batch(frames, *cfg)
+
+    def tail():
+        return pipeline.detect_tail(saddles, luma8, spec, *cfg, hw,
+                                    slots_full=saddles.valid.all(-1))
+
+    tail_ms = _ms(tail, 3)
+    calls, decode = [], pipeline.decode_quads_batch
+
+    def captured(*a, **kw):
+        calls.append((a, kw))
+        return decode(*a, **kw)
+
+    pipeline.decode_quads_batch = captured
+    try:
+        tail()
+    finally:
+        pipeline.decode_quads_batch = decode
+    dec = [_ms(lambda a=a, kw=kw: decode(*a, **kw), 3) for a, kw in calls]
+    return {"front_ms": front, "tail_ms": tail_ms, "decode_ms": dec,
+            "search_ms": tail_ms - sum(dec)}
+
+
+def phase_xla(card: str, batch: int) -> tuple[dict, dict]:
+    """Phase 9, the xla mode (the whole detect on the card): ``detect_batch``
+    at ``batch`` on the four golden images — the golden count on every
+    frame, ID sets equal to the hybrid's on the same batch with corners
+    within 1e-4 px, the first frame equal to the port's CPU xla run;
+    ``detect`` on two_boards (the single-image plane path); ``decimate=True``
+    on iphone and two_boards against the hybrid turbo drain (1e-3 px);
+    ``detect_batch_sharded`` on ``[cuda:0] * 2`` bit-equal to
+    ``detect_batch``; the standalone ``hamming_scan`` on the inputs this path
+    gave it, against its plain version. Records: frames/s (median and
+    spread of 5, CUDA events) beside the hybrid's, the ms split, the host's
+    syncs a batch, the device-busy share, the peak device memory. Returns
+    (each kernel's launches in the held runs, counted from 0 before each
+    and summed; the scan's record)."""
+    import torch
+
+    from aprilgrid_tpu_torch import TagDetector
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.kernels import decode as kdecode
+    from aprilgrid_tpu_torch.ops.board import SYNCS
+    from aprilgrid_tpu_torch.parallel.sharding import detect_batch_sharded, make_mesh
+    from aprilgrid_tpu_torch.utils.profiling import device_busy
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(XLA_KEYS, 0)
+
+    def held(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        SYNCS.update(dict.fromkeys(SYNCS, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        for k in XLA_KEYS:
+            launches[k] += LAUNCHES[k]
+        return out
+
+    xgpu = TagDetector("t36h11", device="cuda", mode="xla")
+    hgpu = TagDetector("t36h11", device="cuda")
+    xcpu = TagDetector("t36h11", device="cpu", mode="xla")
+    imgs = {n: read_png(DATA / f"{n}.png") for n in GOLDEN}
+    scans: list = []
+    scan = kdecode.hamming_scan
+
+    def captured(rots, codes):
+        if not scans:
+            scans.append((rots.clone(), codes))
+        return scan(rots, codes)
+
+    recs: dict = {}
+    for name, img in imgs.items():
+        frames = torch.from_numpy(np.stack([img] * batch)).cuda()
+        xgpu.detect_batch(frames)   # warm-up: builds, allocator, tables
+        if name == "two_boards":
+            kdecode.hamming_scan = captured
+        try:
+            res = held(lambda: xgpu.detect_batch(frames))
+        finally:
+            kdecode.hamming_scan = scan
+        loops = dict(SYNCS)
+        hyb = hgpu.detect_batch(frames)
+        for i, tags in enumerate(res):
+            if len(tags) != GOLDEN[name]:
+                raise AssertionError(f"xla {name} frame {i}: {len(tags)} tags, "
+                                     f"golden {GOLDEN[name]}")
+            if set(tags) != set(hyb[i]):
+                raise AssertionError(f"xla {name} frame {i}: ID set differs from the hybrid")
+        gap = max(_tag_gap(r, h) for r, h in zip(res, hyb))
+        if gap > 1e-4:
+            raise AssertionError(f"xla {name}: corners {gap} px from the hybrid")
+        cpu = xcpu.detect_batch(img[None])[0]
+        if set(cpu) != set(res[0]) or _tag_gap(res[0], cpu) > 1e-4:
+            raise AssertionError(f"xla {name}: frame 0 differs from the CPU xla run")
+        xms = _event_ms(lambda: xgpu.detect_batch(frames), 5)
+        hms = _event_ms(lambda: hgpu.detect_batch(frames), 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = _sync_count(lambda: xgpu.detect_batch(frames))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        busy = device_busy(lambda: xgpu.detect_batch(frames))
+        r = {
+            "frames_per_s": {"median": batch / statistics.median(xms) * 1e3,
+                             "min": batch / max(xms) * 1e3, "max": batch / min(xms) * 1e3},
+            "hybrid_frames_per_s": {"median": batch / statistics.median(hms) * 1e3,
+                                    "min": batch / max(hms) * 1e3,
+                                    "max": batch / min(hms) * 1e3},
+            "call_ms": xms, "hybrid_call_ms": hms, "loop_reads": loops,
+            "host_syncs": syncs, "device_busy": busy, "peak_mib": peak,
+            "corner_gap_hybrid_px": gap, "corner_gap_cpu_px": _tag_gap(res[0], cpu),
+            "cpu_bit_equal": cpu == res[0], "split": xla_split(frames),
+        }
+        recs[name] = r
+        print(f"xla {name} {img.shape} b{batch}: {GOLDEN[name]} tags on every frame, ID "
+              f"sets = the hybrid's (max corner gap {gap:.2e} px), frame 0 = the CPU xla "
+              f"run (gap {r['corner_gap_cpu_px']:.2e} px, bit-equal {r['cpu_bit_equal']}); "
+              f"record {json.dumps(r)} [{card}]", flush=True)
+
+    # one image, the single-image front-end (the plane path)
+    tb = imgs["two_boards"]
+    one = held(lambda: xgpu.detect(tb))
+    ref = hgpu.detect(tb)
+    if len(one) != GOLDEN["two_boards"] or set(one) != set(ref) or _tag_gap(one, ref) > 1e-3:
+        raise AssertionError("xla detect on two_boards differs from the hybrid")
+    print(f"xla detect two_boards (one image, plane path): {len(one)} tags = the hybrid's "
+          f"(gap {_tag_gap(one, ref):.2e} px) [{card}]", flush=True)
+
+    # the turbo path, against the hybrid turbo's drain (the xla mode's
+    # extraction without AG_TURBO_NMS=1)
+    with _env(AG_TURBO_NMS="0"):
+        txgpu = TagDetector("t36h11", device="cuda", mode="xla", decimate=True)
+        thgpu = TagDetector("t36h11", device="cuda", decimate=True)
+        for name in TURBO:
+            frames = torch.from_numpy(np.stack([imgs[name]] * batch)).cuda()
+            txgpu.detect_batch(frames)
+            res = held(lambda: txgpu.detect_batch(frames))
+            hyb = thgpu.detect_batch(frames)
+            for i, tags in enumerate(res):
+                if len(tags) != GOLDEN[name] or set(tags) != set(hyb[i]):
+                    raise AssertionError(f"xla turbo {name} frame {i}: {len(tags)} tags, "
+                                         "or an ID set other than the hybrid turbo's")
+            gap = max(_tag_gap(r, h) for r, h in zip(res, hyb))
+            if gap > 1e-3:
+                raise AssertionError(f"xla turbo {name}: corners {gap} px from the hybrid")
+            xms = _event_ms(lambda: txgpu.detect_batch(frames), 5)
+            print(f"xla turbo {name} b{batch}: {GOLDEN[name]} tags on every frame = the "
+                  f"hybrid turbo drain (max corner gap {gap:.2e} px); "
+                  f"{batch / statistics.median(xms) * 1e3:.1f} frames/s median of 5 "
+                  f"(min {batch / max(xms) * 1e3:.1f}, max {batch / min(xms) * 1e3:.1f}) "
+                  f"[{card}]", flush=True)
+
+    # the standalone scan on the inputs the path gave it (two_boards' first pass)
+    rots, codes = scans[0]
+    m, i = kdecode.hamming_scan(rots, codes)
+    pm, pi = kdecode.hamming_scan_plain(rots, codes)
+    if not (torch.equal(m, pm) and torch.equal(i, pi)):
+        raise AssertionError("hamming_scan differs from its plain version on the xla path")
+    n_rows = rots.shape[0] * rots.shape[1]
+    n_codes, nb = codes.shape
+    # ms by CUDA events over back-to-back calls (host enqueue included),
+    # device_ms with the calls queued ahead (the card's time alone)
+    hrec = dict(
+        err=0.0, ms=_ms(lambda: kdecode.hamming_scan(rots, codes), 50),
+        plain_ms=_ms(lambda: kdecode.hamming_scan_plain(rots, codes), 5),
+        bound=_bound_ms(4.0 * (n_rows + n_codes) * nb + 8.0 * n_rows,
+                        3.0 * n_rows * n_codes),
+        device_ms=_queued_ms(lambda: kdecode.hamming_scan(rots, codes)),
+        shape=list(rots.shape),
+    )
+    print(f"xla hamming_scan on the path's rows {tuple(rots.shape)} vs t36h11: exact; "
+          f"{hrec['ms']:.4f} ms (device {hrec['device_ms']:.4f}, plain "
+          f"{hrec['plain_ms']:.4f}, bound {hrec['bound'][0]:.4f}) [{card}]", flush=True)
+
+    frames = torch.from_numpy(np.stack([tb] * batch)).cuda()
+    want = xgpu.detect_batch(frames)
+    mesh = make_mesh({"data": 2}, [torch.device("cuda", 0)] * 2)
+    if held(lambda: detect_batch_sharded(xgpu, frames, mesh)) != want:
+        raise AssertionError("detect_batch_sharded xla on [cuda:0] * 2 differs from "
+                             "detect_batch")
+    print(f"xla detect_batch_sharded two_boards b{batch} on [cuda:0] * 2: bit-equal to "
+          f"detect_batch [{card}]", flush=True)
+
+    for k in XLA_KEYS:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the xla path")
+    print(f"launches xla path: {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, {"hamming": hrec, "images": recs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2858,6 +3156,9 @@ def main() -> int:
                     help="build, then only phase 8: detect_stream, the adapters, "
                          "detect_batch_sharded, MultiCameraDetector and "
                          "PipelineParallelDetector bit-equal to detect_batch")
+    ap.add_argument("--xla-only", action="store_true",
+                    help="build, then only phase 9: the xla mode (the whole detect on "
+                         "the card) against the hybrid and the CPU run, its records")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -2893,6 +3194,9 @@ def main() -> int:
     if args.ingest_only:
         phase_ingest(card, batch=32)
         return 0
+    if args.xla_only:
+        phase_xla(card, batch=16)
+        return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
         for name in GOLDEN:
@@ -2925,6 +3229,9 @@ def main() -> int:
     sharded_launches, srec = phase_sharded(card, batch=32)
     for k, n in phase_ingest(card, batch=32)[0].items():
         launches[k] += n
+    xla_launches, xrec = phase_xla(card, batch=16)
+    for k, n in xla_launches.items():
+        launches[k] = launches.get(k, 0) + n
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
     jp = "aprilgrid_tpu/pallas/"
@@ -2977,6 +3284,17 @@ def main() -> int:
             kernels[-1].update(
                 launched_as=counter[name], standalone_ms=h["ms"],
                 standalone_plain_ms=h["plain_ms"], standalone_bound_ms=h["bound"][0])
+    # the standalone scan's own launches: the xla path's decode
+    h = xrec["hamming"]
+    if xla_launches["hamming_scan"] <= 0:
+        raise AssertionError("hamming_scan[standalone] was not launched on its path")
+    kernels.append({
+        "name": "hamming_scan[standalone]", "route": "cuda", "source": csrc + "decode.cu",
+        "replaces": jp + "decode.py:49", "launches": xla_launches["hamming_scan"],
+        "max_abs_err": 0.0, "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound"][0], "bound_by": h["bound"][1], "library_ms": None,
+        "device_ms": h["device_ms"], "shape": h["shape"],
+    })
     kernels += sharded_rows(sharded_launches, srec)
     print(f"cluster split two_boards b32, device ms per launch [{card}]: "
           f"{json.dumps(split)}")

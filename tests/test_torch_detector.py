@@ -125,9 +125,14 @@ def test_warn_counters(col):
 @pytest.mark.parametrize("kw", [{"mode": "xla"},
                                 {"mode": "xla", "decimate": True},
                                 {"mode": "xla", "decimate": "auto"}])
-def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TagDetector(device="cpu", **kw)
+def test_xla_constructions_match_jax_facade(kw):
+    """The xla mode's constructions: the mode and the decimate policy on a
+    1080p and a 480p frame equal the JAX facade's."""
+    det = TagDetector(device="cpu", **kw)
+    jdet = JaxDetector("t36h11", **kw)
+    assert det.mode == jdet.mode == "xla"
+    for hw in ((1080, 1920), (480, 752)):
+        assert det._use_decimate(*hw) == jdet._use_decimate(*hw)
 
 
 @pytest.mark.parametrize("mode", ["foo", "XLA", ""])

@@ -43,7 +43,9 @@ def test_import_pulls_in_no_jax():
         "aprilgrid_tpu_torch.bench, aprilgrid_tpu_torch.utils.profiling, "
         "aprilgrid_tpu_torch.utils.images, aprilgrid_tpu_torch.parallel.sharding, "
         "aprilgrid_tpu_torch.adapters, aprilgrid_tpu_torch.parallel.streaming, "
-        "aprilgrid_tpu_torch.parallel.pipeline_parallel\n"
+        "aprilgrid_tpu_torch.parallel.pipeline_parallel, aprilgrid_tpu_torch.ops.geometry, "
+        "aprilgrid_tpu_torch.ops.compact, aprilgrid_tpu_torch.ops.quads, "
+        "aprilgrid_tpu_torch.ops.board, aprilgrid_tpu_torch.ops.search\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
