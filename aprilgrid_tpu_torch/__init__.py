@@ -1,11 +1,13 @@
 """aprilgrid_tpu_torch — the AprilGrid detector in PyTorch with CUDA kernels.
 
 A port of the JAX package ``aprilgrid_tpu`` (which stays the reference)
-to PyTorch and hand-written CUDA kernels for NVIDIA Hopper. So far it
-carries the hybrid detector, exact and turbo (``decimate=True/"auto"``):
-dense front-end and tag decode on the card, board search in native C++ on
-the host; its streaming ingest, input adapters, and data-, camera- and
-pipeline-parallel forms over several devices.
+to PyTorch and hand-written CUDA kernels for NVIDIA Hopper. It carries
+all that package does: the hybrid detector, exact and turbo
+(``decimate=True/"auto"``): dense front-end and tag decode on the card,
+board search in native C++ on the host; the xla mode (the board search on
+the card too); its streaming ingest, input adapters, and data-, camera-
+and pipeline-parallel forms over several devices; and the overlay,
+live-stream and chart surfaces.
 
 Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
 
@@ -29,6 +31,15 @@ Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
   — the front-end on one device, the decode on another.
 * :func:`saddle_distance2`, :class:`Tag`, :class:`Saddle` — the
   reference's structs, for API parity.
+
+Not exported, as in the JAX package (import the module):
+
+* ``viz`` — ``render_overlay``, ``dump_overlay`` and
+  ``write_timeline_html``: detection overlays and the timeline viewer.
+* ``live`` — ``LiveStream``: the MJPEG/HTTP live viewer.
+* ``boards.generator`` — ``AprilGridBoard``, ``render_png``,
+  ``svg_string``, ``pdf_bytes``, ``generate_chart``: Kalibr-compatible
+  charts; ``python -m aprilgrid_tpu_torch.boards`` is their command line.
 """
 
 import torch

@@ -12,10 +12,28 @@ to detect). Here the adapter takes the Python array ecosystem:
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 _DTYPES = (torch.uint8, torch.uint16, torch.float32)
+
+
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """``torch.from_numpy(a)``, no copy, read-only arrays included.
+
+    ``np.asarray`` of a PIL image is read-only, and PyTorch warns that
+    writing through a tensor over it is undefined. The detector never
+    writes into its input: every kernel and every plain version writes
+    only tensors it allocated. So that one warning is silenced here, and
+    only here; the tensor aliases ``a``."""
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable",
+                                UserWarning)
+        return torch.from_numpy(a)
 
 
 def to_detector_input(img) -> torch.Tensor:
@@ -38,7 +56,7 @@ def to_detector_input(img) -> torch.Tensor:
     if isinstance(img, torch.Tensor):
         t = img.detach()
     elif isinstance(img, np.ndarray) or not hasattr(img, "__dlpack__"):
-        t = torch.from_numpy(np.ascontiguousarray(img))
+        t = from_numpy(np.ascontiguousarray(img))
     else:
         t = torch.from_dlpack(img)
 

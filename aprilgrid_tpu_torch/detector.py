@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import native
+from .adapters import from_numpy
 from .config import CONSTANTS, DEFAULT_CAPACITIES, Capacities, DetectorParams, PipelineConstants
 from .families import FamilySpec, TagFamily, get_family
 from .kernels.decode import decode_packed
@@ -624,9 +625,7 @@ def _numpy_view(a: np.ndarray) -> torch.Tensor:
     tensors do not take, are copied out first."""
     if any(st < 0 for st in a.strides):
         a = np.ascontiguousarray(a)
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-        return torch.from_numpy(a)
+    return from_numpy(a)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -644,7 +643,7 @@ def pack_qarr(quads: np.ndarray, counts: np.ndarray) -> np.ndarray:
 def _as_tensor(imgs) -> torch.Tensor:
     if isinstance(imgs, torch.Tensor):
         return imgs
-    return torch.from_numpy(np.ascontiguousarray(imgs))
+    return from_numpy(np.ascontiguousarray(imgs))
 
 
 def _unpack_result(res: DetectResult) -> dict[int, list[tuple[float, float]]]:

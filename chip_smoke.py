@@ -5,9 +5,11 @@ Drives the port's paths — ``TagDetector(device="cuda").detect_batch``, the
 exact hybrid detector, its turbo mode (``decimate=True``, both extraction
 variants) and the plane path (frames beyond the fused kernels' label
 domain, ``refined_saddle_points``), the xla mode (``mode="xla"``, the whole
-detect with the board search on the card), and the entry points that feed it
+detect with the board search on the card), the entry points that feed it
 (``detect_stream``, ``to_detector_input``, ``detect_batch_sharded``,
-``MultiCameraDetector``, ``PipelineParallelDetector``) — on the bundled
+``MultiCameraDetector``, ``PipelineParallelDetector``) and the surfaces
+around it (``viz``, ``live``, the chart generator of ``boards``, the
+profiling utilities) — on the bundled
 golden images at full resolution, after building every kernel from
 ``aprilgrid_tpu_torch/csrc`` and holding each against its plain PyTorch
 version on the card.
@@ -77,7 +79,7 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
 6. a line with the cluster entries' per-launch split, then one JSON line
-   with each kernel's launches in phases 3-5, 7, 8 and 9 (counted per path:
+   with each kernel's launches in phases 3-5 and 7-10 (counted per path:
    zeroed before it, read after it), its error against the plain version,
    its time, the plain version's time and its bound (and, for phase 7's
    rows, its device ms by torch.profiler); the ``hamming_scan`` row counts
@@ -122,7 +124,25 @@ Phases (a failing phase raises, so the script exits non-zero):
    events) beside the hybrid's on the same batch, the device ms of the
    front-end, the search and the decode, the host's reads of the search's
    loop conditions and all synchronizing calls a batch (sync-debug
-   "warn"), the device-busy share and the peak device memory.
+   "warn"), the device-busy share and the peak device memory;
+10. (printed before 6) the overlay, live-stream and chart surfaces, through
+   the port alone: the charts of every family (``boards.generator.
+   render_png`` at 2 px/mm, 1600 x 1600: t16h5 4x4, t25h7 and t25h9 5x5,
+   t36h11 and t36h11b1 (one-bit border) 6x6, t36h11 2x2 from ID 10)
+   through ``detect_batch`` exact and turbo at batch 8 and the xla mode at
+   batch 2, every frame equal to the CPU run of its mode (IDs, corners
+   within 1e-3 px), exact with every ID, frames/s; the demo path
+   (``examples/demo.py``) on the four golden images as PIL hands them over
+   (read-only arrays; the non-writable warning is an error): ``detect``,
+   ``refined_saddle_points`` and ``decode_positions_px``, golden counts,
+   ``viz.dump_overlay`` equal to ``render_overlay`` of the CPU results
+   outside the boxes of elements that differ, ``write_timeline_html``
+   over the four, its embedded counts; ``live.LiveStream`` on 127.0.0.1
+   serving each frame's results (``/latest.jpg`` decodes to the frame's
+   size, ``/state.json`` holds the card's IDs, a ``/stream.mjpg`` chunk is
+   the last frame); ``profiling.detect_stage_report`` and
+   ``profiling.trace`` (CUDA kernel events) on two_boards at batch 32;
+   the per-frame ms of detect, saddles, render, PNG write and publish.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -138,19 +158,22 @@ synthetic check and ``phase_decimate_split``, for work on that kernel;
 ``phase_runtime``, for work on the facade's runtime; ``--sharded-only``
 runs phase 7, for work on the merge and the row sharding; ``--ingest-only``
 runs phase 8, for work on streaming and the multi-device detectors;
-``--xla-only`` runs phase 9, for work on the xla mode).
+``--xla-only`` runs phase 9, for work on the xla mode; ``--viz-only`` runs
+phase 10, for work on the surfaces).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import re
 import statistics
 import sys
 import time
+import urllib.request
 
 import numpy as np
 
@@ -3123,6 +3146,269 @@ def phase_xla(card: str, batch: int) -> tuple[dict, dict]:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, {"hamming": hrec, "images": recs}
 
+# family, border bits, tags in x and y, first ID: tests/test_boards.py's five
+# FAMILIES and its offset board
+CHART_BOARDS = (("t16h5", 2, 4, 4, 0), ("t25h7", 2, 5, 5, 0), ("t25h9", 2, 5, 5, 0),
+                ("t36h11", 2, 6, 6, 0), ("t36h11b1", 1, 6, 6, 0), ("t36h11", 2, 2, 2, 10))
+CHART_MODES = (("exact", {}), ("turbo", {"decimate": True}), ("xla", {"mode": "xla"}))
+# the kernels phase 10 must launch; the turbo extraction is one of the two
+SURFACE_KEYS = ("front_kernel", "cluster_rochade_raw", "decode_packed",
+                "front_kernel_decimate", "sparse_refine_raw", "fused_frontend",
+                "hamming_scan")
+
+
+def _http_get(port: int, path: str) -> bytes:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read()
+
+
+def _overlay_mask(shape, gpu: dict, cpu: dict, gs: list, cs: list) -> np.ndarray:
+    """Pixels an overlay may change where the card's and the CPU run's
+    layers differ: the box (+12 px, for the label) of each tag whose corners
+    differ, and +8 px around each saddle that differs."""
+    mask = np.zeros(shape[:2], bool)
+    h, w = shape[:2]
+
+    def box(x0, y0, x1, y1, m):
+        mask[max(int(y0) - m, 0):max(min(int(y1) + m + 1, h), 0),
+             max(int(x0) - m, 0):max(min(int(x1) + m + 1, w), 0)] = True
+
+    for t in gpu:
+        if gpu[t] != cpu[t]:
+            c = np.asarray(gpu[t] + cpu[t])
+            box(c[:, 0].min(), c[:, 1].min(), c[:, 0].max(), c[:, 1].max(), 12)
+    for a, b in zip(gs, cs):
+        if (a.p, a.theta) != (b.p, b.theta):
+            for q in (a.p, b.p):
+                box(q[0], q[1], q[0], q[1], 8)
+    return mask
+
+
+def phase_surfaces(card: str, batch: int) -> dict:
+    """Phase 10, the overlay, live-stream and chart surfaces through the
+    port alone (what tests/test_boards.py, examples/demo.py and
+    examples/live.py run against the JAX package): (a) the charts of every
+    family from ``boards.generator.render_png`` at 2 px/mm, ``detect_batch``
+    on ``batch`` copies exact and turbo and on 2 in the xla mode, each frame
+    equal to the CPU run of its mode (IDs, corners within 1e-3 px), exact
+    with every ID; (b) the demo path on the four golden images as PIL
+    hands them over (read-only arrays): ``detect``, ``refined_saddle_points``
+    and ``decode_positions_px`` on the card, the golden counts, the
+    overlays by ``viz.dump_overlay`` equal to ``render_overlay`` of the CPU
+    results outside the boxes of the elements that differ,
+    ``write_timeline_html`` over the four; (c) ``live.LiveStream`` on
+    127.0.0.1 serving each frame's card results; (d)
+    ``utils/profiling.py``'s ``detect_stage_report`` and ``trace`` on the
+    card. Returns each kernel's launches in those runs (counted from 0
+    before each and summed)."""
+    import tempfile
+    import warnings
+
+    import torch
+    from PIL import Image
+
+    from aprilgrid_tpu_torch import TagDetector, get_family
+    from aprilgrid_tpu_torch import viz
+    from aprilgrid_tpu_torch.boards.generator import AprilGridBoard, render_png
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+    from aprilgrid_tpu_torch.live import LiveStream
+    from aprilgrid_tpu_torch.ops.board import SYNCS
+    from aprilgrid_tpu_torch.ops.decode import decode_positions_px
+    from aprilgrid_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(LAUNCHES, 0)
+
+    def held(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in LAUNCHES:
+            launches[k] += LAUNCHES[k]
+        return out
+
+    # -- (a) the charts of every family
+    for family, border, sx, sy, first in CHART_BOARDS:
+        board = AprilGridBoard(size_x=sx, size_y=sy, tag_family=family,
+                               border_bits=border, first_marker=first)
+        chart = render_png(board, pixels_per_mm=2.0)
+        want = list(range(first, first + sx * sy))
+        label = f"{family} {sx}x{sy} from {first}"
+        for mode, kw in CHART_MODES:
+            n = 2 if mode == "xla" else batch
+            gpu = TagDetector(family, device="cuda", **kw)
+            frames = torch.from_numpy(np.stack([chart] * n)).cuda()
+            gpu.detect_batch(frames)   # warm-up: builds, allocator, tables
+            SYNCS.update(dict.fromkeys(SYNCS, 0))
+            res = held(lambda: gpu.detect_batch(frames))
+            # the xla search's loop-condition reads (growth sweeps + group checks)
+            reads = f", loop reads {json.dumps(SYNCS)}" if mode == "xla" else ""
+            ref = TagDetector(family, device="cpu", **kw).detect_batch(chart[None])[0]
+            for i, tags in enumerate(res):
+                if mode == "exact" and sorted(tags) != want:
+                    raise AssertionError(f"chart {label} exact frame {i}: IDs "
+                                         f"{sorted(tags)}, want {want}")
+                if set(tags) != set(ref) or _tag_gap(tags, ref) > 1e-3:
+                    raise AssertionError(f"chart {label} {mode} frame {i}: differs from "
+                                         "the CPU run of its mode")
+            ms = _event_ms(lambda: gpu.detect_batch(frames), 3)
+            print(f"chart {label} {chart.shape} {mode} b{n}: {len(res[0])}/{len(want)} IDs "
+                  f"on every frame = the CPU run (max corner gap "
+                  f"{max(_tag_gap(t, ref) for t in res):.2e} px); "
+                  f"{n / statistics.median(ms) * 1e3:.1f} frames/s median of 3{reads} "
+                  f"[{card}]", flush=True)
+
+    # -- (b) the demo path, (c) the live stream
+    gpu = TagDetector("t36h11", device="cuda")
+    cpu = TagDetector("t36h11", device="cpu")
+    spec = get_family("t36h11")
+
+    def decode_points(tags, w, h):
+        # each tag's bit-cell sample points, as examples/demo.py draws them
+        out = {}
+        for tid, corners in tags.items():
+            pts = decode_positions_px(corners, spec, 0.5, w, h)
+            if pts is not None:
+                out[tid] = [tuple(q) for q in pts]
+        return out
+
+    entries, rec = [], {}
+    stream = LiveStream(port=0).start()
+    try:
+        with tempfile.TemporaryDirectory() as out, warnings.catch_warnings():
+            # the frames are read-only: PyTorch's warning on them is a fault
+            warnings.filterwarnings("error", "The given NumPy array is not writable")
+            for i, name in enumerate(GOLDEN):
+                img = np.asarray(Image.open(DATA / f"{name}.png"))
+                h, w = img.shape[:2]
+                gpu.detect(img)   # warm-up
+                t0 = time.perf_counter()
+                tags = held(lambda: gpu.detect(img))
+                t1 = time.perf_counter()
+                saddles = held(lambda: gpu.refined_saddle_points(img))
+                t2 = time.perf_counter()
+                points = decode_points(tags, w, h)
+                layers = dict(tags=tags, saddles=saddles, decode_points=points)
+                t3 = time.perf_counter()
+                viz.render_overlay(img, **layers)
+                t4 = time.perf_counter()
+                path = viz.dump_overlay(os.path.join(out, f"{name}_overlay.png"), img,
+                                        **layers)
+                t5 = time.perf_counter()
+                if len(tags) != GOLDEN[name]:
+                    raise AssertionError(f"demo {name}: {len(tags)} tags, golden "
+                                         f"{GOLDEN[name]}")
+                ctags, csad = cpu.detect(img), cpu.refined_saddle_points(img)
+                if set(ctags) != set(tags) or len(csad) != len(saddles):
+                    raise AssertionError(f"demo {name}: tags or saddles differ from the "
+                                         "CPU run")
+                gap = _tag_gap(tags, ctags)
+                sgap = max(max(abs(a.p[0] - b.p[0]), abs(a.p[1] - b.p[1]))
+                           for a, b in zip(saddles, csad))
+                tgap = max(abs(a.theta - b.theta) for a, b in zip(saddles, csad))
+                if gap > 1e-3 or sgap > 1e-3 or tgap > 1e-3:
+                    raise AssertionError(f"demo {name}: corners {gap} px, saddles {sgap} "
+                                         f"px, orientations {tgap} deg from the CPU run")
+                want = viz.render_overlay(img, tags=ctags, saddles=csad,
+                                          decode_points=decode_points(ctags, w, h))
+                with Image.open(path) as im:
+                    got = np.asarray(im)
+                keep = ~_overlay_mask(img.shape, tags, ctags, saddles, csad)
+                if got.shape != want.shape or not (got[keep] == want[keep]).all():
+                    raise AssertionError(f"demo {name}: overlay differs from the CPU "
+                                         "run's outside the differing elements")
+                raw = f"{name}_raw.png"
+                Image.fromarray(img if img.ndim == 3 or img.dtype == np.uint8
+                                else (img // 257).astype(np.uint8)).save(
+                                    os.path.join(out, raw))
+                entries.append({
+                    "image": raw, "timeline_ns": int(i * 1e9 / 60),
+                    "detect_ms": round((t1 - t0) * 1e3, 2),
+                    "tags": {int(t): [[float(x), float(y)] for x, y in c]
+                             for t, c in tags.items()},
+                    "decode_points": {int(t): [[float(x), float(y)] for x, y in p]
+                                      for t, p in points.items()},
+                    "saddles": [[s.p[0], s.p[1], s.theta] for s in saddles],
+                })
+                # (c) publish the card's results, read them back
+                t6 = time.perf_counter()
+                stream.publish(img, **layers)
+                t7 = time.perf_counter()
+                jpeg = _http_get(stream.port, "/latest.jpg")
+                if jpeg[:2] != b"\xff\xd8":
+                    raise AssertionError(f"live {name}: /latest.jpg is no JPEG")
+                with Image.open(io.BytesIO(jpeg)) as im:
+                    if im.size != (w, h):
+                        raise AssertionError(f"live {name}: JPEG {im.size}, frame {(w, h)}")
+                state = json.loads(_http_get(stream.port, "/state.json"))
+                if state != {"frame": i + 1, "tags": sorted(tags), "n_tags": len(tags),
+                             "n_saddles": len(saddles)}:
+                    raise AssertionError(f"live {name}: /state.json {state}")
+                same = gap == 0.0 and sgap == 0.0 and tgap == 0.0
+                rec[name] = {"detect_ms": (t1 - t0) * 1e3, "saddles_ms": (t2 - t1) * 1e3,
+                             "render_ms": (t4 - t3) * 1e3, "dump_ms": (t5 - t4) * 1e3,
+                             "png_write_ms": (t5 - t4 - (t4 - t3)) * 1e3,
+                             "publish_ms": (t7 - t6) * 1e3, "tags": len(tags),
+                             "saddles": len(saddles), "corner_gap_px": gap,
+                             "saddle_gap_px": sgap, "theta_gap_deg": tgap,
+                             "cpu_bit_equal": same,
+                             "overlay_pixels_compared": int(keep.sum())}
+                print(f"demo {name} {img.shape} {img.dtype}: {len(tags)} tags, "
+                      f"{len(saddles)} saddles on the card = the CPU run (corner gap "
+                      f"{gap:.2e} px, saddle gap {sgap:.2e} px, theta gap {tgap:.2e} deg, "
+                      f"bit-equal {same}); overlay "
+                      f"= the CPU run's on {int(keep.sum())}/{keep.size} pixels; /latest.jpg "
+                      f"{len(jpeg)} bytes {w}x{h}, /state.json frame {i + 1}; record "
+                      f"{json.dumps(rec[name])} [{card}]", flush=True)
+            html = viz.write_timeline_html(out, entries).read_text()
+            data = json.loads(re.search(r"const F=(\[.*?\]);let", html, re.S).group(1))
+            if [len(e["tags"]) for e in data] != [GOLDEN[n] for n in GOLDEN]:
+                raise AssertionError("timeline.html: embedded tag counts differ from golden")
+        # one multipart chunk of the stream: the last frame's JPEG
+        with urllib.request.urlopen(f"http://127.0.0.1:{stream.port}/stream.mjpg",
+                                    timeout=10) as r:
+            if "multipart/x-mixed-replace" not in r.headers["Content-Type"]:
+                raise AssertionError("live: /stream.mjpg is not multipart")
+            if r.readline() != b"--frame\r\n" or r.readline() != b"Content-Type: image/jpeg\r\n":
+                raise AssertionError("live: /stream.mjpg chunk header")
+            size = int(r.readline().split(b":")[1])
+            r.readline()
+            if r.read(size) != jpeg:
+                raise AssertionError("live: the stream's chunk is not the last frame")
+    finally:
+        stream.stop()
+    print(f"demo timeline.html: {len(data)} frames, tag counts "
+          f"{[len(e['tags']) for e in data]}; live /stream.mjpg chunk = /latest.jpg "
+          f"({size} bytes) [{card}]", flush=True)
+
+    # -- (d) the profiling utilities on the card
+    frames = torch.from_numpy(np.stack([read_png(DATA / "two_boards.png")] * 32)).cuda()
+    report = held(lambda: profiling.detect_stage_report(gpu, frames, reps=1))
+    if "board search" not in report or "total" not in report:
+        raise AssertionError(f"detect_stage_report: {report}")
+    print(f"detect_stage_report two_boards b32 on the card [{card}]:\n{report}", flush=True)
+    with tempfile.TemporaryDirectory() as tdir:
+        with profiling.trace(tdir):
+            held(lambda: gpu.detect_batch(frames))
+        with open(os.path.join(tdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("profiling.trace wrote no CUDA kernel event")
+    print(f"profiling.trace around detect_batch two_boards b32: {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events ({len({e['name'] for e in kernels})} "
+          f"names) [{card}]", flush=True)
+
+    for k in SURFACE_KEYS:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the surfaces' path")
+    if launches["cluster_rochade_raw[luma_f32]"] + launches["nms_extract_raw"] <= 0:
+        raise AssertionError("no turbo extraction kernel was launched on the charts")
+    print(f"launches surfaces: {json.dumps({k: n for k, n in launches.items() if n})}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3159,6 +3445,10 @@ def main() -> int:
     ap.add_argument("--xla-only", action="store_true",
                     help="build, then only phase 9: the xla mode (the whole detect on "
                          "the card) against the hybrid and the CPU run, its records")
+    ap.add_argument("--viz-only", action="store_true",
+                    help="build, then only phase 10: the charts of every family, the "
+                         "demo path with its overlays and timeline, the live stream "
+                         "and the profiling utilities, all through the port on the card")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -3197,6 +3487,9 @@ def main() -> int:
     if args.xla_only:
         phase_xla(card, batch=16)
         return 0
+    if args.viz_only:
+        phase_surfaces(card, batch=8)
+        return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
         for name in GOLDEN:
@@ -3231,6 +3524,9 @@ def main() -> int:
         launches[k] += n
     xla_launches, xrec = phase_xla(card, batch=16)
     for k, n in xla_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    surface_launches = phase_surfaces(card, batch=8)
+    for k, n in surface_launches.items():
         launches[k] = launches.get(k, 0) + n
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
@@ -3286,11 +3582,12 @@ def main() -> int:
                 standalone_plain_ms=h["plain_ms"], standalone_bound_ms=h["bound"][0])
     # the standalone scan's own launches: the xla path's decode
     h = xrec["hamming"]
-    if xla_launches["hamming_scan"] <= 0:
+    n = xla_launches["hamming_scan"] + surface_launches["hamming_scan"]
+    if n <= 0:
         raise AssertionError("hamming_scan[standalone] was not launched on its path")
     kernels.append({
         "name": "hamming_scan[standalone]", "route": "cuda", "source": csrc + "decode.cu",
-        "replaces": jp + "decode.py:49", "launches": xla_launches["hamming_scan"],
+        "replaces": jp + "decode.py:49", "launches": n,
         "max_abs_err": 0.0, "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound"][0], "bound_by": h["bound"][1], "library_ms": None,
         "device_ms": h["device_ms"], "shape": h["shape"],
