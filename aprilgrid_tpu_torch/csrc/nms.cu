@@ -33,20 +33,45 @@
 //       aligned 4x4 cell of the zero-filled cell grid.
 //
 // With the geodesic peak merge (merge = m in 1..8) (a) also writes the
-// relay mask (a byte a pixel: response < thr strictly inside the image),
-// (c) marks its peaks in a zeroed byte plane instead of emitting them, and
-// a fourth launch emits:
+// relay mask as bits (response < thr strictly inside the image; a warp's
+// ballot is one 32-bit word of a row, bit j its column 32 k + j), and a
+// third launch takes the place of (c):
 //
-//   (d) merge, flagged tiles only: a block stages the keys (a peak's
-//       position, else none) and the mask of its 64 x 64 tile with a
-//       MERGE_MAX-pixel halo in shared memory and runs the m sweeps of
-//       four passes (from +x, -x, +y, -y; each pass takes the neighbour's
-//       key where the mask holds and that key is smaller), a barrier
-//       around each pass. A key moves at most one pixel per pass, so after
-//       m sweeps the tile's own keys depend only on the halo: the staged
-//       region is exact there, and the block's answer is the merge of the
-//       whole plane. Its surviving peaks (key still their own) go out as
-//       in (c), a warp's fit each.
+//   (d) merge, flagged tiles only: a block takes its 64 x 64 tile with a
+//       MERGE_MAX-pixel halo (80 x 80), lists the region's relay pixels
+//       from the relay words of its rows (32 columns a thread), finds the
+//       peaks among them as (c) does, and gives each peak its key: its
+//       position in the region's scan order, which orders as the plane's
+//       does. Only relay pixels ever hold a key (a peak is a candidate, and
+//       a candidate's response is below thr inside the margin). A thread
+//       holds its relay pixels (at most 25) in registers, key and position
+//       in one word (key << 16 | position), so that taking a smaller
+//       neighbour's key is one integer min. A pass (from +x, -x, +y, -y)
+//       reads the neighbour's key from one of two key planes in shared
+//       memory (a ring of "no key" around the region) and writes the
+//       thread's keys into the other. One barrier a pass.
+//       The halo: a key moves at most one pixel a pass, and a sweep moves it
+//       at most one pixel along each axis, so after m sweeps the tile's own
+//       keys depend only on the region: the staged simulation is exact
+//       there, and the block's answer is the merge of the whole plane.
+//       The early exit: after each sweep the block asks whether a key moved
+//       (__syncthreads_or). A pass is a function of the keys alone, so a
+//       sweep that moves none leaves a fixed point of the staged simulation
+//       and every later sweep moves none either: the keys at that sweep
+//       are the keys of sweep m. The halo argument is about the staged
+//       simulation, which this only cuts short once it stands still. The
+//       tile's surviving peaks (key still their own) go out as in (c), a
+//       warp's fit each, and its flag becomes the number of sweeps run.
+//
+// What bound the merge's first form: a fourth launch ran all 32 passes of
+// m8 on every staged pixel, 25 a thread, each a key and a mask byte
+// through shared memory with its index recomputed and two barriers a pass
+// (0.373 ms at two_boards b32 on an H100), after a marking launch that
+// wrote peaks into a zero-filled byte plane that it read again. Here a
+// pass costs a thread a load, a byte permute, a min and a store for each
+// of its relay pixels, about a tenth of the region on the photographs;
+// what binds (d) now is that instruction issue, then its survivors' fits.
+// The merge-free launches stay as they were.
 //
 // Row sharding (roff non-null): pixel row r is row r + roff[b] of a
 // gh-row frame; the image-edge gates hold in both, y and the label are
@@ -79,8 +104,13 @@ constexpr int NMS_R = 3;         // Chebyshev radius of the peak window
 constexpr int PEAK_ROWS = 16;    // peaks_kernel: rows per block (two a warp)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MERGE_MAX = 8;     // sweeps of the peak merge, and its halo
-constexpr int ME = FIT_TILE + 2 * MERGE_MAX;   // merge_kernel: staged side
-constexpr unsigned NOKEY = 0xffffffffu;        // "no peak's key"
+constexpr int ME = FIT_TILE + 2 * MERGE_MAX;   // merge_kernel: staged side, 80
+constexpr int MP = ME + 2;                     // with the ring that holds no key
+constexpr int MPER = ME * ME / THREADS;        // relay pixels a thread, at most
+constexpr unsigned short NOKEY = 0xffffu;      // "no peak's key"
+
+static_assert(ME * ME % THREADS == 0, "the staged region in whole rounds");
+static_assert(MP * MP < NOKEY && MP * MP % 2 == 0, "positions fit 16 bits");
 
 static_assert(FIT_TILE == TILE_H && FIT_TILE == STRIP_W, "one tile size");
 
@@ -89,12 +119,12 @@ __device__ __forceinline__ int* tile_flag(int* flags, int b, int ti, int si,
   return flags + ((size_t)b * (hp / TILE_H) + ti) * (wp / STRIP_W) + si;
 }
 
-// MASK: also write the merge's relay mask.
+// MASK: also write the merge's relay mask, a bit a pixel (b, hp, wp / 32).
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
 blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
                  Taps7 taps, const float* thr, const int* roff, int gh,
-                 float* blur, float* cand, int* flags, uint8_t* mask) {
+                 float* blur, float* cand, int* flags, unsigned* relay) {
   __shared__ TileSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
   const int c0 = si * STRIP_W;
@@ -103,6 +133,7 @@ blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
   const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
   const size_t fbase = (size_t)b * hp * wp;
   bool any = false;
+  unsigned rel = 0u;   // MASK: bit k, the relay mask at the k-th pixel
   for (int idx = threadIdx.x; idx < TILE_H * STRIP_W; idx += THREADS) {
     int y = idx / STRIP_W, x = idx % STRIP_W;
     int r = ti * TILE_H + y, c = c0 + x, g = r + ro;
@@ -111,17 +142,28 @@ blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
     float v = BIGF;
     const bool inb = r >= hp2 && r < h - hp2 && g >= hp2 && g < gh - hp2 &&
                      c >= hp2 && c < w - hp2;
-    if (inb) {
+    // MASK: the mask asks for the response strictly inside the image, a
+    // band wider than the margin's
+    if (inb || (MASK && r > 0 && r < h - 1 && g > 0 && g < gh - 1 && c > 0 && c < w - 1)) {
       float resp = hessian_at(s, y + 1, x + 1);
-      if (resp < t) {
+      if (inb && resp < t) {
         v = resp;
         any = true;
       }
+      if constexpr (MASK) rel |= (unsigned)(resp < t) << (idx / THREADS);
     }
     cand[i] = v;
-    if constexpr (MASK) {
-      const bool inner = r > 0 && r < h - 1 && g > 0 && g < gh - 1 && c > 0 && c < w - 1;
-      mask[i] = inner && (inb ? v < BIGF : hessian_at(s, y + 1, x + 1) < t);
+  }
+  if constexpr (MASK) {
+    // a warp's k-th pixels are 32 columns of one row, the first a multiple
+    // of 32: one word of the relay plane
+    constexpr int PIX = TILE_H * STRIP_W / THREADS;
+    const int x = (threadIdx.x & ~31) % STRIP_W, r = ti * TILE_H + threadIdx.x / STRIP_W;
+    unsigned* row = relay + ((size_t)b * hp + r) * (wp / 32) + (c0 + x) / 32;
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      const unsigned bits = __ballot_sync(FULL, rel >> k & 1u);
+      if ((threadIdx.x & 31) == 0) row[(size_t)k * (THREADS / STRIP_W) * (wp / 32)] = bits;
     }
   }
   const int some = __syncthreads_or(any);
@@ -257,13 +299,10 @@ __device__ __forceinline__ void emit_peaks(unsigned bal, int r, int c,
   }
 }
 
-// MARK: the merge follows, so the peaks are marked in ``peaks`` and not
-// emitted.
-template <bool MARK>
 __global__ void __launch_bounds__(THREADS)
 peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
              int w, const int* roff, const __grid_constant__ FitTaps fit,
-             float move_thr, uint8_t* peaks, float* cells) {
+             float move_thr, float* cells) {
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * PEAK_ROWS;
   if (!*tile_flag(flags, b, r0 / TILE_H, blockIdx.x, hp, wp)) return;
@@ -278,10 +317,6 @@ peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (v[k] < BIGF && is_peak(cd, wp, r, c + k, v[k])) pk = k;
-  if constexpr (MARK) {
-    if (pk >= 0) peaks[fbase + (size_t)r * wp + c + pk] = 1;
-    return;
-  }
   // no barrier in this kernel: a warp without a peak leaves. The fit reads
   // its tap tables from the parameter bank, where lanes that read different
   // rows take turns; staging them in shared memory would cost a block more
@@ -292,65 +327,138 @@ peaks_kernel(const float* blur, const float* cand, int* flags, int hp, int wp,
 }
 
 // Launch (d): the merge on flagged tile (b, ti, si) and the emission of its
-// surviving peaks. Keys are positions r * wp + c (unsigned: hp * wp < 2^32
-// for every plane whose labels are f32-exact), NOKEY where no peak is.
-__global__ void __launch_bounds__(THREADS)
-merge_kernel(const float* blur, const uint8_t* peaks, const uint8_t* mask,
-             const int* flags, int hp, int wp, int w, const int* roff, int merge,
+// surviving peaks. A position p = (y + 1) * MP + x + 1 is pixel (r0 + y,
+// c0 + x) of the region (0 <= y, x < ME): the ring's positions hold no key.
+struct MergeSmem {
+  unsigned short key[2][MP * MP];
+  unsigned short list[ME * ME];     // relay pixels, later the survivors
+  unsigned words[ME][4];            // the relay words that cover each row
+  FitScratch scratch[THREADS / 32];
+  int nrelay, nsurv;
+};
+
+// Appends ``v`` to ``list`` where ``m`` holds, a warp's lanes in lane order
+// at one atomically taken place (``n`` counts); all 32 lanes call it.
+__device__ __forceinline__ void append(unsigned short* list, int* n, bool m,
+                                       unsigned short v) {
+  const int lane = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(FULL, m);
+  int at = 0;
+  if (lane == 0 && bal) at = atomicAdd(n, __popc(bal));
+  at = __shfl_sync(FULL, at, 0);
+  if (m) list[at + __popc(bal & ((1u << lane) - 1u))] = v;
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+merge_kernel(const float* blur, const float* cand, const unsigned* relay,
+             int* flags, int hp, int wp, int w, const int* roff, int merge,
              const __grid_constant__ FitTaps fit, float move_thr, float* cells) {
-  __shared__ unsigned key[ME * ME];
-  __shared__ uint8_t relay[ME * ME];
-  __shared__ FitScratch scratch[THREADS / 32];
+  __shared__ __align__(4) MergeSmem s;
   const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
-  if (!*tile_flag(const_cast<int*>(flags), b, ti, si, hp, wp)) return;
+  int* flag = tile_flag(flags, b, ti, si, hp, wp);
+  if (!*flag) return;   // the whole block: no candidate, so no peak, here
   const size_t fbase = (size_t)b * hp * wp;
+  const float* cd = cand + fbase;
   const int r0 = ti * FIT_TILE - MERGE_MAX, c0 = si * FIT_TILE - MERGE_MAX;
-  constexpr int PER = (ME * ME + THREADS - 1) / THREADS;
-  for (int idx = threadIdx.x; idx < ME * ME; idx += THREADS) {
-    const int r = r0 + idx / ME, c = c0 + idx % ME;
-    const bool in = r >= 0 && r < hp && c >= 0 && c < wp;
-    const size_t i = fbase + (size_t)r * wp + c;
-    key[idx] = in && peaks[i] ? (unsigned)r * wp + c : NOKEY;
-    relay[idx] = in ? mask[i] : 0;
+  unsigned* k0 = reinterpret_cast<unsigned*>(s.key[0]);
+  for (int i = threadIdx.x; i < MP * MP / 2; i += THREADS) k0[i] = 0xffffffffu;
+  // the words of the relay plane that cover the region's rows: columns
+  // c0 - 24 .. c0 + 103 (c0 = 24 mod 32); outside the plane none
+  for (int i = threadIdx.x; i < ME * 4; i += THREADS) {
+    const int r = r0 + i / 4, wd = (c0 >> 5) + i % 4;
+    s.words[i / 4][i % 4] = r >= 0 && r < hp && wd >= 0 && wd < wp / 32
+                                ? relay[((size_t)b * hp + r) * (wp / 32) + wd] : 0u;
   }
+  if (threadIdx.x == 0) s.nrelay = s.nsurv = 0;
   __syncthreads();
-  // the four passes: the neighbour at +x, -x, +y, -y; outside the staged
-  // region there is no key (only the halo's own values go stale)
-  const int dy[4] = {0, 0, 1, -1}, dx[4] = {1, -1, 0, 0};
-  for (int sweep = 0; sweep < merge; ++sweep) {
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      unsigned nv[PER];
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int idx = threadIdx.x + k * THREADS;
-        if (idx >= ME * ME) break;
-        const int y = idx / ME + dy[d], x = idx % ME + dx[d];
-        const unsigned nk = y >= 0 && y < ME && x >= 0 && x < ME ? key[y * ME + x] : NOKEY;
-        const unsigned cur = key[idx];
-        nv[k] = relay[idx] && nk < cur ? nk : cur;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int idx = threadIdx.x + k * THREADS;
-        if (idx >= ME * ME) break;
-        key[idx] = nv[k];
-      }
-      __syncthreads();
+  // the relay pixels' list: 32 columns of a row a thread (x from 32 j,
+  // the third 16), at one atomically taken place
+  if (threadIdx.x < ME * 3) {
+    const int y = threadIdx.x / 3, j = threadIdx.x % 3;
+    unsigned bits = __funnelshift_r(s.words[y][j], s.words[y][j + 1], 24);
+    if (j == 2) bits &= 0xffffu;
+    int at = bits ? atomicAdd(&s.nrelay, __popc(bits)) : 0;
+    while (bits) {
+      const int x = 32 * j + __ffs(bits) - 1;
+      bits &= bits - 1;
+      s.list[at++] = (unsigned short)((y + 1) * MP + x + 1);
     }
   }
-  // the tile's own pixels: a peak survives where its key is its own
-  const int ro = roff != nullptr ? roff[b] : 0;
-  for (int k = 0; k < FIT_TILE * FIT_TILE / THREADS; ++k) {
-    const int idx = threadIdx.x + k * THREADS;
-    const int y = idx / FIT_TILE, x = idx % FIT_TILE;
-    const int r = ti * FIT_TILE + y, c = si * FIT_TILE + x;
-    const unsigned kv = key[(y + MERGE_MAX) * ME + x + MERGE_MAX];
-    const bool keep = kv == (unsigned)r * wp + c;   // a peak's own position
-    emit_peaks(__ballot_sync(FULL, keep), r, c, blur, fbase, hp, wp, w, ro, fit,
-               move_thr, scratch[threadIdx.x >> 5], cells, b);
+  __syncthreads();
+  // the peaks among them (every candidate is a relay pixel): a peak's key
+  // is its position. Candidates lie inside the margin: every window read
+  // stays in the plane
+  const int n = s.nrelay, rounds = (n + THREADS - 1) / THREADS;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int p = s.list[i], r = r0 + p / MP - 1, c = c0 + p % MP - 1;
+    const float v = cd[(size_t)r * wp + c];
+    if (v < BIGF && is_peak(cd, wp, r, c, v)) s.key[0][p] = (unsigned short)p;
   }
+  __syncthreads();
+  unsigned* k1 = reinterpret_cast<unsigned*>(s.key[1]);
+  for (int i = threadIdx.x; i < MP * MP / 2; i += THREADS) k1[i] = k0[i];
+  // this thread's relay pixels: list entries threadIdx.x + k * THREADS
+  const int cnt = n > (int)threadIdx.x ? (n - (int)threadIdx.x + THREADS - 1) / THREADS : 0;
+  unsigned e[MPER];
+#pragma unroll
+  for (int k = 0; k < MPER; ++k) {
+    if (k >= cnt) break;
+    const unsigned p = s.list[threadIdx.x + k * THREADS];
+    e[k] = (unsigned)s.key[0][p] << 16 | p;
+  }
+  __syncthreads();   // both key planes stand
+  // pass d reads key[d & 1] and writes every relay pixel's key into
+  // key[(d + 1) & 1]; four passes a sweep, so the parity is the same in
+  // every sweep. ``moved`` gathers the bits that changed
+  int sweeps = 0;
+  while (sweeps < merge) {
+    ++sweeps;
+    unsigned moved = 0u;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int off = d == 0 ? 1 : d == 1 ? -1 : d == 2 ? MP : -MP;
+      const unsigned short* from = s.key[d & 1];
+      unsigned short* to = s.key[(d + 1) & 1];
+#pragma unroll
+      for (int k = 0; k < MPER; ++k) {
+        if (k >= cnt) break;
+        const int p = (int)(e[k] & 0xffffu);
+        // (neighbour's key) << 16 | p: the smaller word holds the smaller key
+        const unsigned v = min(e[k], __byte_perm(e[k], from[p + off], 0x5410));
+        moved |= v ^ e[k];
+        e[k] = v;
+        to[p] = (unsigned short)(v >> 16);
+      }
+      if (d < 3) __syncthreads();
+    }
+    if (!__syncthreads_or(moved != 0u)) break;   // a fixed point: see the head
+  }
+  // the tile's own peaks that kept their key, then their records
+  constexpr int lo = MERGE_MAX + 1, hi = MERGE_MAX + FIT_TILE;
+#pragma unroll
+  for (int k = 0; k < MPER; ++k) {
+    if (k >= rounds) break;   // the same for the whole block: ballots stay full
+    unsigned p = 0u;
+    bool keep = false;
+    if (k < cnt) {
+      p = e[k] & 0xffffu;
+      const unsigned y = p / MP, x = p % MP;
+      keep = e[k] >> 16 == p && y >= lo && y <= hi && x >= lo && x <= hi;
+    }
+    append(s.list, &s.nsurv, keep, (unsigned short)p);
+  }
+  __syncthreads();
+  // survivor j to warp j % 8: the fits spread over the block's warps
+  const int ns = s.nsurv, ro = roff != nullptr ? roff[b] : 0;
+  constexpr int WARPS = THREADS / 32;
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < ns; base += THREADS) {
+    const int at = base + lane * WARPS + (threadIdx.x >> 5);
+    const int p = at < ns ? s.list[at] : 0;
+    emit_peaks(__ballot_sync(FULL, at < ns), r0 + p / MP - 1, c0 + p % MP - 1, blur,
+               fbase, hp, wp, w, ro, fit, move_thr, s.scratch[threadIdx.x >> 5], cells, b);
+  }
+  if (threadIdx.x == 0) *flag = sweeps;
 }
 
 }  // namespace
@@ -359,56 +467,58 @@ merge_kernel(const float* blur, const uint8_t* peaks, const uint8_t* mask,
 // 64, (h, w) its true size; thr: (b,) f32 device; roff: (b,) int32 device
 // row offsets or null, gh the frame's rows (h without roff); merge: 0-8
 // sweeps; scratch: blur and cand (b, hp, wp) f32, flags (b, hp / 64,
-// wp / 64) int32, with merge > 0 mask (b, hp, wp) bytes and peaks
-// (b, hp, wp) bytes zero-filled by the caller (else null); cells:
-// (b, 6, hp / 4, wp / 4) f32 zero-filled by the caller. Returns the first
-// launch error, -1 if the fit's tables are not in the order the tile form
-// takes (rochade.cuh::fit_tile_taps), -2 for a merge beyond MERGE_MAX, or 0.
+// wp / 64) int32, with merge > 0 relay (b, hp, wp / 32) 32-bit words (else
+// null); cells: (b, 6, hp / 4, wp / 4) f32 zero-filled by the caller. After
+// a merge a flagged tile's flag is the number of sweeps its block ran.
+// With half_p null (merge > 0 only) the merge launch alone runs on the blur,
+// cand, relay and flags the caller gives (the smoke's synthetic planes);
+// thr and the blur taps are then not read. Returns the first launch error,
+// -1 if the fit's tables are not in the order the tile form takes
+// (rochade.cuh::fit_tile_taps), -2 for a merge outside 0..MERGE_MAX (1..
+// with half_p null), or 0.
 extern "C" int ag_nms_extract_raw(const void* half_p, int b, int hp, int wp,
                                   int h, int w, const void* thr,
                                   const float* taps7, const void* fit_taps,
                                   float move_thr, int hp2, const void* roff,
                                   int gh, int merge, void* blur, void* cand,
-                                  void* flags, void* mask, void* peaks,
-                                  void* cells, void* stream) {
+                                  void* flags, void* relay, void* cells,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (merge < 0 || merge > MERGE_MAX) return -2;
-  Taps7 taps;
-  for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
+  if (merge < (half_p == nullptr ? 1 : 0) || merge > MERGE_MAX) return -2;
   const FitTaps fit = *(const FitTaps*)fit_taps;
   FitTileTaps tile_taps;
   if (!fit_tile_taps(fit, &tile_taps)) return -1;
   const int* ro = (const int*)roff;
   const dim3 tgrid(wp / STRIP_W, hp / TILE_H, b);
-  if (merge > 0)
-    blur_resp_kernel<true><<<tgrid, THREADS, 0, st>>>(
-        (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
-        gh, (float*)blur, (float*)cand, (int*)flags, (uint8_t*)mask);
-  else
-    blur_resp_kernel<false><<<tgrid, THREADS, 0, st>>>(
-        (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
-        gh, (float*)blur, (float*)cand, (int*)flags, nullptr);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  gate_kernel<<<tgrid, THREADS, 0, st>>>((const float*)blur, (float*)cand,
-                                           (int*)flags, hp, wp, tile_taps,
-                                           move_thr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 pgrid(wp / STRIP_W, hp / PEAK_ROWS, b);
+  cudaError_t e;
+  if (half_p != nullptr) {
+    Taps7 taps;
+    for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
+    if (merge > 0)
+      blur_resp_kernel<true><<<tgrid, THREADS, 0, st>>>(
+          (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+          gh, (float*)blur, (float*)cand, (int*)flags, (unsigned*)relay);
+    else
+      blur_resp_kernel<false><<<tgrid, THREADS, 0, st>>>(
+          (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+          gh, (float*)blur, (float*)cand, (int*)flags, nullptr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gate_kernel<<<tgrid, THREADS, 0, st>>>((const float*)blur, (float*)cand,
+                                             (int*)flags, hp, wp, tile_taps,
+                                             move_thr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   if (merge == 0) {
-    peaks_kernel<false><<<pgrid, THREADS, 0, st>>>(
+    const dim3 pgrid(wp / STRIP_W, hp / PEAK_ROWS, b);
+    peaks_kernel<<<pgrid, THREADS, 0, st>>>(
         (const float*)blur, (const float*)cand, (int*)flags, hp, wp, w, ro, fit,
-        move_thr, nullptr, (float*)cells);
+        move_thr, (float*)cells);
     return (int)cudaGetLastError();
   }
-  peaks_kernel<true><<<pgrid, THREADS, 0, st>>>(
-      (const float*)blur, (const float*)cand, (int*)flags, hp, wp, w, ro, fit,
-      move_thr, (uint8_t*)peaks, nullptr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   merge_kernel<<<tgrid, THREADS, 0, st>>>(
-      (const float*)blur, (const uint8_t*)peaks, (const uint8_t*)mask,
-      (const int*)flags, hp, wp, w, ro, merge, fit, move_thr, (float*)cells);
+      (const float*)blur, (const float*)cand, (const unsigned*)relay, (int*)flags,
+      hp, wp, w, ro, merge, fit, move_thr, (float*)cells);
   return (int)cudaGetLastError();
 }

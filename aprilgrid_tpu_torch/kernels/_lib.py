@@ -141,7 +141,7 @@ def lib() -> ctypes.CDLL:
     ]
     handle.ag_nms_extract_raw.restype = i
     handle.ag_nms_extract_raw.argtypes = [
-        p, i, i, i, i, i, p, p, p, f, i, p, i, i, p, p, p, p, p, p, p,
+        p, i, i, i, i, i, p, p, p, f, i, p, i, i, p, p, p, p, p, p,
     ]
     handle.ag_sparse_refine_raw.restype = i
     handle.ag_sparse_refine_raw.argtypes = [

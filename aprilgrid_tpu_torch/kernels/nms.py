@@ -10,9 +10,11 @@ flagged tiles, where the ROCHADE fit's cone smoothing is one stencil of the
 whole tile that its masked pixels share
 (``ops/rochade.py::record_planes`` states the premise in PyTorch), bound by
 instruction throughput; the peaks, a warp's fit each, into the cell grid.
-With the peak merge (``merge`` > 0) the third launch marks the peaks in a
-plane instead and a fourth runs the merge on the flagged tiles and emits
-the surviving peaks. The source's head has the details. On a CPU tensor it
+With the peak merge (``merge`` > 0) the first launch also writes the relay
+mask as bits, and the third launch is the merge in its place: on each
+flagged tile with an 8-pixel halo it finds the peaks, runs the sweeps with
+the keys in registers (stopping at a sweep that moves none) and emits the
+surviving peaks. The source's head has the details. On a CPU tensor it
 runs ``nms_extract_raw_plain``.
 
 The function, on the half-resolution luma plane of ``front_kernel_decimate``:
@@ -211,6 +213,18 @@ def nms_extract_raw(
     require_cuda(half_p, "nms_extract_raw")
     if thr.device != half_p.device:
         raise ValueError("nms_extract_raw: thr must be on half_p's device")
+    cells, _ = _launch(half_p, thr, h, w, sigma, hp2, move_thr, merge, row_off, gh)
+    # the row-sharding mode and the merge count apart from the plain launches
+    key = "nms_extract_raw[merge]" if merge else "nms_extract_raw"
+    LAUNCHES["nms_extract_raw[row_off]" if row_off is not None else key] += 1
+    return cells
+
+
+def _launch(half_p, thr, h, w, sigma, hp2, move_thr, merge, row_off, gh):
+    """The CUDA entry on checked arguments: (cells, flags), where after a
+    merge each tile's flag is the number of sweeps its block ran (0: no
+    candidate in the tile), which the smoke's histogram reads."""
+    b = half_p.shape[0]
     dev = half_p.device
     h_pad, w_pad = half_p.shape[1] - 16, half_p.shape[2]
     thr = thr.contiguous()
@@ -220,21 +234,18 @@ def nms_extract_raw(
     cells = torch.zeros(
         (b, 6, h_pad // _CELL, w_pad // _CELL), dtype=torch.float32, device=dev
     )
-    # the merge's relay mask and peak planes, a byte a pixel
-    mask = peaks = None
+    # the merge's relay mask, a bit a pixel: every tile writes its words
+    relay = None
     if merge:
-        mask = torch.empty((b, h_pad, w_pad), dtype=torch.uint8, device=dev)
-        peaks = torch.zeros((b, h_pad, w_pad), dtype=torch.uint8, device=dev)
+        relay = torch.empty((b, h_pad, w_pad // 32), dtype=torch.int32, device=dev)
     taps = _taps(sigma)
     fit = fit_struct(hp2 // 2)
     err = launch(
         "nms_extract_raw", half_p,
         half_p.data_ptr(), b, h_pad, w_pad, h, w, thr.data_ptr(),
-        ctypes.addressof(taps), ctypes.addressof(fit), float(move_thr), hp2,
-        None if row_off is None else row_off.data_ptr(), gh,
+        ctypes.addressof(taps), ctypes.addressof(fit), float(move_thr), hp2, None if row_off is None else row_off.data_ptr(), gh,
         merge, blur.data_ptr(), cand.data_ptr(), flags.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if peaks is None else peaks.data_ptr(), cells.data_ptr(),
+        None if relay is None else relay.data_ptr(), cells.data_ptr(),
     )
     if err == -1:
         raise ValueError(
@@ -242,10 +253,7 @@ def nms_extract_raw(
             "tile kernel takes (csrc/rochade.cuh::fit_tile_taps)"
         )
     check(err, "nms_extract_raw")
-    # the row-sharding mode and the merge count apart from the plain launches
-    key = "nms_extract_raw[merge]" if merge else "nms_extract_raw"
-    LAUNCHES["nms_extract_raw[row_off]" if row_off is not None else key] += 1
-    return cells
+    return cells, flags
 
 
 def cells_to_fields(cells: torch.Tensor, capf: int = 1024):

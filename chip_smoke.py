@@ -87,9 +87,15 @@ Phases (a failing phase raises, so the script exits non-zero):
    and the ``hamming_scan[standalone]`` row the standalone scan's launches
    (the xla path's), timed on the rows that path gave it, with its device
    ms from calls queued behind a busy kernel (CUDA events);
-7. (printed before 6) the NMS kernel's peak merge at m4 and m8 bit-equal to its
-   plain version on the four images' half planes at batch 32, with the
-   device split of m0/m4/m8, then ``detect_batch`` in the turbo NMS mode
+7. (printed before 6) the NMS kernel's peak merge at every m in 0-8 bit-equal
+   to its plain version on the four images' half planes at batch 32, with
+   the sweeps each tile ran (a histogram of the kernel's flags) at m4 and
+   m8, and the merge launch alone on the synthetic merge planes
+   (``merge_synthetic_planes``: keys that cross a tile edge or corner by
+   exactly the halo, rings, the plane's edges, chains whose fixed point
+   comes at sweep 8) bit-equal to the plain merge at m1-m8; what ptxas
+   reported for the merge's launches and the device split of m0/m4/m8,
+   then ``detect_batch`` in the turbo NMS mode
    with ``AG_NMS_MERGE=8`` on the 1080p images against the CPU run (the
    merge's path); each kernel's row-sharding mode (``row_off``,
    ``global_h``) bit-equal to its plain version on the windows the
@@ -2291,14 +2297,16 @@ def _gray(img):
     return to_luma(t)[1].reshape(img.shape[:2]) if img.ndim == 3 else t
 
 
-def _fit_work(lf, thr: float, h: int, w: int, margin: int) -> dict:
+def _fit_work(lf, thr: float, h: int, w: int, margin: int, peaks=None) -> dict:
     """What the data asks of the cluster and NMS kernels on frame 0 of an
     f32 luma plane in the padded layout (thr its threshold): components of
     the mask (roots), masked pixels inside the ``margin`` (a fit each), the
     64 x 64 tiles that hold one, and the pixels of those tiles together
     with the 8 pixels around them (the reach of an 8-sweep peak merge):
     a halo pixel counts once, and not where a neighbouring tile holds a
-    fit itself."""
+    fit itself. With frame 0's ``peaks`` (an (h, w) bool plane), also what
+    the peak merge asks: the relay (mask) pixels within that reach, and
+    the last sweep of eight that moves a key (``_moving_sweeps``)."""
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
@@ -2317,8 +2325,33 @@ def _fit_work(lf, thr: float, h: int, w: int, margin: int) -> dict:
     tiles = tiles.reshape(hp // 64, 64, wp // 64, 64).any(3).any(1)
     tile_px = tiles.repeat_interleave(64, 0).repeat_interleave(64, 1).to(torch.float32)
     reach = torch.nn.functional.max_pool2d(tile_px[None, None], 17, 1, 8)[0, 0]
-    return dict(roots=roots, fits=int(fit.sum()), fit_tiles=int(tiles.sum()),
+    work = dict(roots=roots, fits=int(fit.sum()), fit_tiles=int(tiles.sum()),
                 merge_px=int((reach > 0).sum()))
+    if peaks is not None:
+        work.update(relay_reach=int((mask & (reach[:h, :w] > 0)).sum()),
+                    merge_sweeps=_moving_sweeps(peaks, mask, 8))
+    return work
+
+
+def _moving_sweeps(peaks, relay, merge: int) -> int:
+    """The last of ``merge`` sweeps that moves a key, in the plain merge's
+    passes (``merge_peaks_plain``) on (h, w) bool planes; 0 if none."""
+    import torch
+
+    h, w = peaks.shape
+    big = h * w
+    key = torch.where(peaks, torch.arange(big, device=peaks.device).reshape(h, w), big)
+    last = 0
+    for sweep in range(1, merge + 1):
+        old = key
+        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            nk = torch.full_like(key, big)
+            nk[max(-dy, 0) : h - max(dy, 0), max(-dx, 0) : w - max(dx, 0)] = (
+                key[max(dy, 0) : h - max(-dy, 0), max(dx, 0) : w - max(-dx, 0)])
+            key = torch.where(relay & (nk < key), nk, key)
+        if not torch.equal(key, old):
+            last = sweep
+    return last
 
 
 def _device_ms(split: dict) -> float:
@@ -2327,34 +2360,125 @@ def _device_ms(split: dict) -> float:
     return sum(v if k != "at::" else v["ms"] for k, v in split.items())
 
 
-def _nms_ops(batch: int, hpx: int, fits: int, fit_tiles: int, merge: int = 0,
-             merge_px: int = 0) -> float:
+def _nms_ops(batch: int, hpx: int, fits: int, fit_tiles: int,
+             merge_px: int = 0, merge_passes: int = 0) -> float:
     """Operations of ``nms_extract_raw`` for this run's data: the stencil,
     the tile form of the record gate at every pixel of a tile that holds a
     fit, per fit its rows of taps and the closed form plus 49 compares per
-    pass of the peak window; with the merge, per pass of a sweep a compare
-    and a select at each pixel a key can come from (``merge_px``: the
-    tiles that hold a fit and the halo around them, each pixel once)."""
+    pass of the peak window; with the merge, a compare and a select at
+    each of ``merge_px`` pixels in each of ``merge_passes`` passes. The
+    merge's row counts the relay pixels within 8 of a fit tile and the
+    passes up to the last sweep that moves a key on frame 0 (counted
+    before as every pixel within 8 of a fit tile, 32 passes at m8); then the bytes
+    (half plane in, cell grid out) bind it at two_boards b32, as they bind
+    the merge-free entry."""
     from aprilgrid_tpu_torch.ops.rochade import fit_taps
 
     cone, fits_t = fit_taps(2)
     tile_ops = 2.0 * len(cone)
     row_ops = 2.0 * sum(5 * len(vt) + len(ht) for _, vt, ht in fits_t) + 30.0
-    merge_ops = merge_px * 4 * merge * 2.0
+    merge_ops = merge_px * merge_passes * 2.0
     return STENCIL_OPS * hpx + batch * (fit_tiles * 4096 * tile_ops
                                         + fits * (row_ops + 98) + merge_ops)
 
 
+# the synthetic merge planes: (h, w) = 3 x 4 tiles of 64
+MERGE_PLANE = (192, 256)
+
+
+def merge_synthetic_planes():
+    """Relay masks and peaks (bool, (5, 192, 256)) built to break a merge
+    that is only tile-local, one case a plane: ``names, peaks, relay``.
+    Every peak is a relay pixel at least 4 pixels from the plane's edges,
+    and two peaks are more than 3 pixels apart (Chebyshev), as the NMS
+    leaves them.
+
+    *reach8*: keys that travel exactly the halo's 8 pixels into a
+    neighbouring tile — right along row 100 across column 64 (peaks 8
+    apart at columns 56, 64, 72), down column 200 across row 128, and
+    left-down through a filled rectangle from tile (0, 2) into (0, 1);
+    *corner*: one-pixel staircases through the corners (64, 64) and
+    (64, 128), 8 sweeps from a peak of one tile to a peak of the
+    diagonally opposite one; *ring*: a two-pixel-thick square ring across
+    column 64, where a key reaches pixels from two sides in one sweep,
+    and a filled square whose one peak's key reaches its pixels from the
+    left and from above; *edge*: blobs that touch the plane's four edges,
+    two peaks in each; *fixed8*: lone chains whose last moving sweep is
+    the 8th (9 pixels), the 7th (8 pixels) and beyond the 8th (11
+    pixels), and a 5 x 5 square (4)."""
+    h, w = MERGE_PLANE
+    names = ("reach8", "corner", "ring", "edge", "fixed8")
+    relay = np.zeros((len(names), h, w), bool)
+    peaks = np.zeros_like(relay)
+
+    def put(i, pts):
+        for y, x in pts:
+            peaks[i, y, x] = relay[i, y, x] = True
+
+    relay[0, 100, 50:81] = True
+    put(0, [(100, 56), (100, 64), (100, 72)])
+    relay[0, 110:151, 200] = True
+    put(0, [(120, 200), (128, 200)])
+    relay[0, 20:29, 124:133] = True
+    put(0, [(20, 132), (28, 124)])
+    for i in range(9):
+        relay[1, 60 + i, 60 + i] = relay[1, 60 + i, 61 + i] = True
+        relay[1, 60 + i, 132 - i] = relay[1, 60 + i, 131 - i] = True
+    put(1, [(60, 60), (68, 68), (60, 132), (68, 124)])
+    relay[2, 96:104, 58:66] = True
+    relay[2, 98:102, 60:64] = False
+    put(2, [(96, 58), (96, 65), (103, 65)])
+    relay[2, 30:40, 150:160] = True
+    put(2, [(30, 150)])
+    for sl in ((slice(0, 10), slice(0, 13)), (slice(182, 192), slice(240, 256)),
+               (slice(0, 12), slice(200, 256)), (slice(150, 192), slice(0, 9))):
+        relay[3][sl] = True
+    put(3, [(4, 4), (4, 9), (187, 245), (187, 251), (5, 210), (5, 217), (160, 4),
+            (168, 4)])
+    relay[4, 90, 20:29] = True
+    relay[4, 90, 150:158] = True
+    relay[4, 30, 150:161] = True
+    relay[4, 160:165, 20:25] = True
+    put(4, [(90, 20), (90, 150), (30, 150), (160, 20)])
+    ys, xs = np.nonzero(peaks.any(0))
+    assert ys.min() >= 4 and xs.min() >= 4 and ys.max() < h - 4 and xs.max() < w - 4
+    return names, peaks, relay
+
+
+def _sweep_hist(flags) -> dict:
+    """Tiles by the sweeps their merge ran (the kernel's flags after a
+    merge; 0, a tile without a candidate, is left out)."""
+    import torch
+
+    n = torch.bincount(flags[flags > 0].flatten().to(torch.int64)).tolist()
+    return {s: c for s, c in enumerate(n) if c}
+
+
 def merge_checks(card: str, batch: int, rec: dict) -> None:
-    """``nms_extract_raw`` with the peak merge at m4 and m8 bit-equal to its
-    plain version on the four goldens' half planes at ``batch``; the peaks
-    a frame keeps at m0/m4/m8; two_boards at m8 timed."""
+    """``nms_extract_raw`` at every m in 0-8 bit-equal to its plain version
+    on the four goldens' half planes at ``batch``; the peaks a frame keeps
+    at m0/m4/m8 and the sweeps frame 0's tiles ran at m4 and m8; then the
+    synthetic merge planes (``merge_synthetic_check``); two_boards timed at
+    m8 with the device split of m0/m4/m8 and what ptxas reported for the
+    merge's launches."""
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels import _lib
     from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate, pad_raw
-    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
+    from aprilgrid_tpu_torch.kernels.nms import (
+        MERGE_MAX,
+        _launch,
+        nms_extract_raw,
+        nms_extract_raw_plain,
+    )
 
+    for r in _lib.kernel_resources("nms.cu"):
+        if r["kernel"] in ("merge_kernel", "blur_resp_kernel<1>"):
+            print(f"ptxas nms.cu {r['kernel']} (the merge's launches): {r['registers']} "
+                  f"registers, {r['stack_bytes']} B stack frame, spills "
+                  f"{r['spill_store_bytes']}/{r['spill_load_bytes']} B (stores/loads), "
+                  f"{r['smem_bytes']} B smem", flush=True)
     sigma = CONSTANTS.blur_sigma
     for name in GOLDEN:
         img = torch.from_numpy(read_png(DATA / f"{name}.png")).to("cuda")
@@ -2363,13 +2487,10 @@ def merge_checks(card: str, batch: int, rec: dict) -> None:
         hh, wh = h // 2, w // 2
         _, half_p, tmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
         thr = tmin.amin(-1) * CONSTANTS.response_threshold_ratio
-        peaks = {}
-        for m in (0, 4, 8):
+        peaks, ran = {}, {}
+        for m in range(MERGE_MAX + 1):
             nargs = (half_p, thr, hh, wh, sigma, 4, 1.0, m)
             cells = nms_extract_raw(*nargs)
-            peaks[m] = int((cells[0, 5] > 0.5).sum())
-            if not m:
-                continue
             pcells = nms_extract_raw_plain(*nargs)
             torch.cuda.synchronize()
             if not torch.equal(cells, pcells):
@@ -2377,28 +2498,113 @@ def merge_checks(card: str, batch: int, rec: dict) -> None:
                     f"nms_extract_raw merge={m} {name}: {int((cells[:, 5] > 0.5).sum())} vs "
                     f"{int((pcells[:, 5] > 0.5).sum())} peaks, max |diff| "
                     f"{(cells - pcells).abs().max().item()}")
-        print(f"kernels nms_extract_raw[merge] {name} b{batch}: m4, m8 bit-equal to the "
-              f"plain version; peaks/frame m0/m4/m8 {peaks[0]}/{peaks[4]}/{peaks[8]}",
-              flush=True)
+            peaks[m] = int((cells[0, 5] > 0.5).sum())
+            if m == 0:
+                labels = cells[0, 5][cells[0, 5] > 0.5].to(torch.int64) - 1
+            if m in (4, 8):
+                ran[m] = _sweep_hist(_launch(half_p, thr, hh, wh, sigma, 4, 1.0, m, None,
+                                             hh)[1][0])
+        print(f"kernels nms_extract_raw[merge] {name} b{batch}: m0-m8 bit-equal to the "
+              f"plain version; peaks/frame m0/m4/m8 {peaks[0]}/{peaks[4]}/{peaks[8]}; "
+              f"frame 0's tiles by sweeps run: m4 {ran[4]}, m8 {ran[8]}", flush=True)
         if name == "two_boards":
-            work = _fit_work(half_p, float(thr[0]), hh, wh, 4)
+            pk = torch.zeros((hh, wh), dtype=torch.bool, device="cuda")
+            pk[labels // wh, labels % wh] = True
+            work = _fit_work(half_p, float(thr[0]), hh, wh, 4, peaks=pk)
             hpx = batch * (half_p.shape[1] - 16) * half_p.shape[2]
             nbytes = sum(t.numel() * t.element_size() for t in (half_p, thr, cells))
+            bound = _bound_ms(nbytes, _nms_ops(batch, hpx, work["fits"], work["fit_tiles"],
+                                               work["relay_reach"], 4 * work["merge_sweeps"]))
+            old = _bound_ms(nbytes, _nms_ops(batch, hpx, work["fits"], work["fit_tiles"],
+                                             work["merge_px"], 32))
             split = _profile_split({f"m{m}": (lambda m=m: nms_extract_raw(
                 half_p, thr, hh, wh, merge=m)) for m in (0, 4, 8)})
             print(f"split nms_extract_raw two_boards b{batch}, device ms per launch: "
                   f"{json.dumps(split)}", flush=True)
             rec["merge"] = dict(
                 err=0.0, ms=_ms(lambda: nms_extract_raw(*nargs), 10),
-                plain_ms=_ms(lambda: nms_extract_raw_plain(*nargs), 1),
-                bound=_bound_ms(nbytes, _nms_ops(batch, hpx, work["fits"],
-                                                 work["fit_tiles"], 8, work["merge_px"])),
+                plain_ms=_ms(lambda: nms_extract_raw_plain(*nargs), 1), bound=bound,
                 peaks=peaks, device_ms=_device_ms(split["m8"]),
             )
             print(f"time nms_extract_raw two_boards b{batch}: m0 "
                   f"{_ms(lambda: nms_extract_raw(half_p, thr, hh, wh), 10):.4f} ms, m4 "
                   f"{_ms(lambda: nms_extract_raw(half_p, thr, hh, wh, merge=4), 10):.4f} ms, "
-                  f"m8 {rec['merge']['ms']:.4f} ms [{card}]", flush=True)
+                  f"m8 {rec['merge']['ms']:.4f} ms [{card}]; m8 bound {bound[0]:.4f} ms "
+                  f"({bound[1]}: {work['relay_reach']} relay pixels within reach x 4 x "
+                  f"{work['merge_sweeps']} moving sweeps a frame), the count of the merge's first form "
+                  f"{old[0]:.4f} ms ({old[1]}: {work['merge_px']} pixels x 32 passes)",
+                  flush=True)
+    merge_synthetic_check(card)
+
+
+def merge_synthetic_check(card: str) -> None:
+    """The merge launch alone (``ag_nms_extract_raw`` without a half plane)
+    on the synthetic merge planes on the card: candidates at their peaks
+    only, a blurred noise plane for the fits, the relay mask as bits, the
+    flag of each tile that holds a peak. At every m in 1-8 the cell grid
+    equals the plain merge's bit for bit (``nms_peaks_plain`` gives the
+    planes' peaks, ``merge_peaks_plain`` the survivors, ``fit_record`` at
+    each their record; NaN where both are NaN), and at m8 the chains of
+    *fixed8* end their tiles' sweeps where the CPU block model does
+    (tests/test_torch_nms.py)."""
+    import ctypes
+
+    import torch
+
+    from aprilgrid_tpu_torch.kernels import _lib
+    from aprilgrid_tpu_torch.kernels._fit import fit_struct
+    from aprilgrid_tpu_torch.kernels.nms import (
+        _BIGF,
+        MERGE_MAX,
+        merge_peaks_plain,
+        nms_peaks_plain,
+    )
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur
+    from aprilgrid_tpu_torch.ops.rochade import fit_record, gather_patches
+
+    names, peaks, relay = merge_synthetic_planes()
+    b, h, w = peaks.shape
+    pk, rl = torch.from_numpy(peaks).cuda(), torch.from_numpy(relay).cuda()
+    cand = torch.where(pk, -1.0, _BIGF).to(torch.float32)
+    noise = np.random.default_rng(3).random((b, h, w), dtype=np.float32)
+    blur = gaussian_blur(torch.from_numpy(noise).cuda(), 1.5).contiguous()
+    bits = (rl.view(b, h, w // 32, 32).to(torch.int64)
+            << torch.arange(32, device="cuda")).sum(-1)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).contiguous()
+    tiles = pk.view(b, h // 64, 64, w // 64, 64).any(4).any(2).to(torch.int32)
+    if not torch.equal(nms_peaks_plain(cand), pk):
+        raise AssertionError("merge synthetic planes: the NMS does not keep their peaks")
+    fit = fit_struct(2)
+    left, ran = [], {}
+    for m in range(1, MERGE_MAX + 1):
+        flags = tiles.clone()
+        cells = torch.zeros((b, 6, h // 4, w // 4), dtype=torch.float32, device="cuda")
+        _lib.check(_lib.launch(
+            "nms_extract_raw", cand, None, b, h, w, h, w, None, None,
+            ctypes.addressof(fit), 1.0, 4, None, h, m, blur.data_ptr(), cand.data_ptr(),
+            flags.data_ptr(), bits.data_ptr(), cells.data_ptr()), "merge synthetic")
+        want = torch.zeros_like(cells)
+        merged = merge_peaks_plain(pk, rl, m)
+        for i in range(b):
+            ys, xs = torch.nonzero(merged[i], as_tuple=True)
+            x0, y0, c3, c4, c5, _ = fit_record(gather_patches(blur[i], xs, ys, 2), 2, 1.0)
+            want[i, :5, ys // 4, xs // 4] = torch.stack(
+                [xs.to(torch.float32) + x0, ys.to(torch.float32) + y0, c3, c4, c5])
+            want[i, 5, ys // 4, xs // 4] = (ys * w + xs + 1).to(torch.float32)
+        torch.cuda.synchronize()
+        if not bool(((cells == want) | (cells.isnan() & want.isnan())).all()):
+            raise AssertionError(
+                f"merge synthetic m{m}: peaks {(cells[:, 5] > 0.5).sum((1, 2)).tolist()} vs "
+                f"plain {(want[:, 5] > 0.5).sum((1, 2)).tolist()} ({names})")
+        left.append((cells[:, 5] > 0.5).sum((1, 2)).tolist())
+        ran[m] = {n: _sweep_hist(flags[i]) for i, n in enumerate(names)}
+    fixed = flags[names.index("fixed8")]
+    if {(int(t), int(u)): int(fixed[t, u]) for t, u in torch.nonzero(fixed)} != {
+            (0, 2): 8, (1, 0): 8, (1, 2): 8, (2, 0): 5}:
+        raise AssertionError(f"merge synthetic fixed8: tiles ran {fixed.tolist()} sweeps")
+    print(f"kernels nms_extract_raw[merge] synthetic {h}x{w} ({', '.join(names)}): the "
+          f"merge launch bit-equal to the plain merge at m1-m8; peaks a plane m1..m8 "
+          f"{left}; tiles by sweeps run at m8 {ran[MERGE_MAX]} [{card}]", flush=True)
 
 
 def _cluster_diff(f, c, pf, pc, label: str, tol: float) -> float:
@@ -3477,7 +3683,6 @@ def main() -> int:
         phase_runtime(card, batch=128)
         return 0
     if args.sharded_only:
-        _print_ptxas("nms.cu")
         launches, srec = phase_sharded(card, batch=32)
         print(json.dumps({"kernels": sharded_rows(launches, srec)}))
         return 0

@@ -381,3 +381,130 @@ def test_record_planes_matches_jax_record_planes(data_dir, case):
     for k in (0, 1):
         err = np.abs(got[k] - jrec[k])[both]
         assert np.median(err) < 1e-4 and np.quantile(err, 0.9) < 1e-3
+
+
+# -- the merge kernel's blocks (csrc/nms.cu::merge_kernel) as a numpy walk
+
+_ME = 64 + 2 * 8   # staged side: the tile and the 8-pixel halo
+_MP = _ME + 2      # with the ring that holds no key
+_NOKEY = 0xFFFF
+
+
+def _merge_block_model(peaks, relay, merge):
+    """``merge_kernel`` on (h, w) bool planes (multiples of 64), block by
+    block: each tile that holds a peak (the kernel's flag is a candidate;
+    a tile without a peak emits nothing) stages its 80 x 80 region, where
+    outside the plane is neither relay nor peak, in a position plane with
+    a ring; its relay pixels are the entries ``key << 16 | position`` that
+    the threads hold (at most 25 each); each pass reads the neighbour's key
+    from one key plane, takes the word's min, and writes every entry's key
+    into the other plane; a sweep that moves no key ends the walk. Returns the tiles' surviving peaks (key still
+    their own) and the sweeps each tile ran."""
+    h, w = peaks.shape
+    out = np.zeros_like(peaks)
+    ran = {}
+    grid = np.arange(_MP * _MP, dtype=np.int64).reshape(_MP, _MP)[1:-1, 1:-1]
+    for ti in range(h // 64):
+        for si in range(w // 64):
+            if not peaks[ti * 64 : ti * 64 + 64, si * 64 : si * 64 + 64].any():
+                continue
+            r0, c0 = ti * 64 - 8, si * 64 - 8
+            ya, yb, xa, xb = max(r0, 0), min(r0 + _ME, h), max(c0, 0), min(c0 + _ME, w)
+            rel = np.zeros((_ME, _ME), bool)
+            pk = np.zeros((_ME, _ME), bool)
+            rel[ya - r0 : yb - r0, xa - c0 : xb - c0] = relay[ya:yb, xa:xb]
+            pk[ya - r0 : yb - r0, xa - c0 : xb - c0] = peaks[ya:yb, xa:xb]
+            assert not (pk & ~rel).any()   # every peak is a relay pixel
+            key0 = np.full(_MP * _MP, _NOKEY, np.int64)
+            key0[grid[pk]] = grid[pk]
+            keys = [key0, key0.copy()]
+            p = grid[rel]
+            assert len(p) <= 25 * 256
+            e = keys[0][p] << 16 | p
+            sweeps = 0
+            while sweeps < merge:
+                sweeps += 1
+                moved = False
+                for d, off in enumerate((1, -1, _MP, -_MP)):
+                    src, dst = keys[d & 1], keys[(d + 1) & 1]
+                    v = np.minimum(e, src[p + off] << 16 | p)
+                    moved |= bool((v != e).any())
+                    e = v
+                    dst[p] = e >> 16
+                if not moved:
+                    break
+            ran[(ti, si)] = sweeps
+            y, x = p // _MP - 1, p % _MP - 1
+            own = (e >> 16 == p) & (y >= 8) & (y < 72) & (x >= 8) & (x < 72)
+            out[r0 + y[own], c0 + x[own]] = True
+    return out, ran
+
+
+def _golden_peaks_relay(data_dir, name, crop):
+    """The half plane's peaks (the plain NMS's cells at m0) and relay mask
+    (``nms_extract_raw_plain``'s ``mask``) of a golden image's crop, on the
+    padded plane."""
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
+
+    img = load_image(str(data_dir / f"{name}.png"))[: crop[0], : crop[1]]
+    h, w = img.shape[:2]
+    raw, _, _, ch, u16 = pad_raw(torch.from_numpy(img)[None])
+    _, half_p, tmin = front_kernel_decimate(raw, 1.5, (h, w), ch, u16)
+    thr = tmin.amin(-1) * 0.05
+    hh, wh = h // 2, w // 2
+    cells = nms_extract_raw(half_p, thr, hh, wh)
+    lab = cells[0, 5][cells[0, 5] > 0.5].to(torch.int64) - 1
+    peaks = np.zeros((half_p.shape[1] - 16, half_p.shape[2]), bool)
+    peaks[lab // wh, lab % wh] = True
+    resp = hessian_response(gaussian_blur(half_p[0, :, :wh], 1.5)[8 : 8 + hh])
+    relay = np.zeros_like(peaks)
+    relay[1 : hh - 1, 1 : wh - 1] = (resp < thr[0]).numpy()[1:-1, 1:-1]
+    return peaks, relay
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The plain merge runs many small operations: one intra-op thread
+    keeps them from spinning against the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", ["EuRoC", "two_boards", "reach8", "corner", "ring",
+                                  "edge", "fixed8"])
+def test_merge_block_model_equals_plain(data_dir, one_thread, case):
+    """The merge kernel's block walk (``_merge_block_model``) equals
+    ``merge_peaks_plain`` bit for bit at every m in 1-8: on a golden's
+    half-plane peaks and relay (EuRoC whole, a 1080p crop of two_boards)
+    and on the smoke's synthetic merge planes, which hold keys that travel
+    exactly the halo into a neighbouring tile, through a tile corner,
+    around a ring, along the plane's edges, and chains whose fixed point
+    comes at sweep 8, 7 and later. The peaks that merge away and the
+    sweeps the tiles ran show that the planes do what they are built for."""
+    import chip_smoke
+
+    if case in ("EuRoC", "two_boards"):
+        peaks, relay = _golden_peaks_relay(data_dir, case, (512, 1024))
+    else:
+        names, sp, sr = chip_smoke.merge_synthetic_planes()
+        assert names == ("reach8", "corner", "ring", "edge", "fixed8")
+        peaks, relay = sp[names.index(case)], sr[names.index(case)]
+    left, ran = [], {}
+    for m in range(1, 9):
+        got, ran[m] = _merge_block_model(peaks, relay, m)
+        want = merge_peaks_plain(torch.from_numpy(peaks), torch.from_numpy(relay), m)
+        np.testing.assert_array_equal(got, want.numpy())
+        left.append(int(got.sum()))
+    if case in ("EuRoC", "two_boards"):
+        assert left[-1] < left[0] <= peaks.sum()
+        assert max(ran[8].values()) == 8 and min(ran[8].values()) < 8
+    elif case == "fixed8":
+        assert left == [4] * 8
+        assert ran[8] == {(0, 2): 8, (1, 0): 8, (1, 2): 8, (2, 0): 5}
+        assert ran[4] == {(0, 2): 4, (1, 0): 4, (1, 2): 4, (2, 0): 4}
+    else:
+        want = {"reach8": [7] * 7 + [3], "corner": [4] * 7 + [2],
+                "ring": [4] * 6 + [2, 2], "edge": [8] * 4 + [7, 6, 5, 4]}[case]
+        assert left == want
