@@ -52,6 +52,8 @@ from .parallel.pipeline_parallel import PipelineParallelDetector
 from .parallel.sharding import detect_batch_sharded, make_mesh
 from .parallel.streaming import MultiCameraDetector, detect_stream
 
+__version__ = "0.3.0"
+
 # Every plane stays f32 at full precision: TF32 convolutions or products
 # would move the saddle response threshold and the fits.
 torch.backends.cudnn.allow_tf32 = False

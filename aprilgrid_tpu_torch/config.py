@@ -56,10 +56,16 @@ class Capacities:
     The reference uses dynamically sized Vec/HashMap everywhere; here every
     set is a fixed-capacity padded array with a validity mask. Defaults are
     sized for the bundled test set (iphone.png needs ~300 live saddles for
-    66 tags) with generous headroom. The hybrid path reads ``max_saddles``,
-    ``grid_radius`` and ``max_tags``; the other fields size the on-device
-    board search, which this package does not have yet, and are kept so
-    a configuration carries across unchanged.
+    66 tags) with generous headroom. Which path reads which field:
+
+    * every path: ``max_saddles`` (the saddles handed to the board
+      search), ``grid_radius`` and ``max_tags`` (the tags decoded a pass);
+    * the xla mode (``TagDetector(mode="xla")``, ``pipeline.detect_tail``),
+      for its on-device board search: ``max_quads``, ``max_boards``,
+      ``seeds_per_group``, ``max_attempts`` and ``knn_pool``;
+    * the plane path (``pipeline.planes_frontend_batch``, frames beyond the
+      fused kernels' label domain), for its bounded clustering:
+      ``max_clusters``, ``max_masked`` and ``label_prop_rounds``.
     """
 
     max_clusters: int = 4096

@@ -12,8 +12,9 @@
 // frame holds a few thousand blobs. So one launch runs per pixel and the
 // four after it run over compact lists that it starts:
 //
-//   (a) blur_mask (raw or f32 luma in, the front kernel's tile stencil of
-//       stencil.cuh, writes the f32 blur plane) or mask (blur plane in, 16
+//   (a) blur_mask (raw or f32 luma in: front_tile_kernel's staging and
+//       blur passes of tile.cuh, then its Hessian rows, a thread 4 columns
+//       of 4 rows; writes the f32 blur plane) or mask (blur plane in, 16
 //       bytes per thread and row): the label plane gets -1 at unmasked
 //       pixels and, at a masked one (resp < thr inside the image's
 //       one-pixel border), the index of the first pixel of its run within
@@ -73,8 +74,18 @@
 // list launches wait on chains of L2 round trips (labels) and on atomics,
 // so (a) links what a warp can see in registers and every cursor is
 // advanced once per block: same-address atomics run one after another.
+// Launch (a) of the raw form runs the front kernel's staging and passes, so
+// it is bound as that kernel is: by the latency between its barrier-
+// separated phases, not by its bytes. At two_boards b32 on an NVIDIA H100
+// 80GB HBM3 at 700 W it takes 0.356 ms against a 0.220-ms bytes floor
+// (738 MB), the share of its floor that front_tile_kernel with a blur
+// plane reaches; the first version (blur_tile, hessian_at and a warp a
+// row) took 0.464 (PERF.md, section 6). Recomputing the fit's blur patch
+// from the frame in (e), so that (a) writes no blur plane, cut (a) to
+// 0.309 but raised (e) from 0.075 to 0.111: the entry fell 2 %, the
+// f32-luma mode's rose 1 %, and it was not kept.
 #include "rochade.cuh"
-#include "stencil.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -109,45 +120,123 @@ __device__ __forceinline__ int reserve_entries(int n, int* cursor, int* sh) {
   return sh[1] + __shfl_sync(FULL, first, 0);
 }
 
-__global__ void __launch_bounds__(THREADS)
-blur_mask_kernel(const void* raw, int hp, int wp, int channels, int mode,
-                 int h, int w, Taps7 taps, const float* thr, const int* roff,
-                 int gh, float* blur, int* labels, int* plist, int* npix) {
-  __shared__ TileSmem s;
-  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
-  const int c0 = si * STRIP_W;
-  blur_tile(s, raw, b, ti, si, hp, wp, channels, mode, w, taps);
-  const float t = thr[b];
-  const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
-  const size_t fbase = (size_t)b * hp * wp;
+// The labels of a thread's four pixels i .. i + 3 of one row (mask bits
+// m) and the warp's four ballots of them: ballot k holds pixel k of every
+// lane. A lane's 32-column segment is its octet of lanes, pixel k of lane
+// l at bit 4 (l % 8) + k of the segment's bits.
+__device__ __forceinline__ int4 row_labels(const bool (&m)[4], int i, unsigned (&bal)[4]) {
   const int lane = threadIdx.x & 31;
-  // a warp holds 32 consecutive columns of one row per step; ``mine`` keeps
-  // this thread's mask bit of every step, ``count`` the warp's masked pixels
+  unsigned seg = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bal[k] = __ballot_sync(FULL, m[k]);
+    unsigned x = (bal[k] >> (lane & 24)) & 0xffu;   // bit j -> bit 4 j
+    x = (x | (x << 12)) & 0x000f000fu;
+    x = (x | (x << 6)) & 0x03030303u;
+    x = (x | (x << 3)) & 0x11111111u;
+    seg |= x << k;
+  }
+  const int pos = 4 * (lane & 7), seg0 = i - pos;
+  int4 lab;
+  lab.x = m[0] ? seg0 + run_start(seg, pos) : -1;
+  lab.y = m[1] ? seg0 + run_start(seg, pos + 1) : -1;
+  lab.z = m[2] ? seg0 + run_start(seg, pos + 2) : -1;
+  lab.w = m[3] ? seg0 + run_start(seg, pos + 3) : -1;
+  return lab;
+}
+
+// Launch (a)'s pixels in response_run's layout: the thread's columns
+// c .. c + 3 of rows r0 .. r0 + 3 (pixel i0 = r0 * wp + c of the frame's
+// planes; a warp holds two row groups of 64 columns, an octet of lanes one
+// aligned 32-column segment), from a rotating 3-row window of the blurred
+// tile. Each row's blurred pixels and labels leave as one 16-byte store
+// each (``blur`` and ``labels`` point at pixel i0); bit 4 r + k of
+// ``mine`` is the mask of pixel (r0 + r, c + k), and ``count`` adds up the
+// warp's masked pixels. A pixel is masked where its row is in ``rows``,
+// its column in [1, w - 1) and its response below t; without BORDER every
+// pixel of the block is inside, and only the response is tested.
+template <bool BORDER>
+__device__ __forceinline__ void mask_run(const FrontTileSmem& s, int q, int y0, int r0,
+                                         int c, Rows rows, int w, float t, int wp,
+                                         int i0, float* blur, int* labels,
+                                         unsigned& mine, int& count) {
+  float up[6], mid[6], dn[6];
+  load_row6(s, y0, q, up);
+  load_row6(s, y0 + 1, q, mid);
+  bool col_in[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col_in[j] = c + j != 0 && c + j < w - 1;
+#pragma unroll
+  for (int r = 0; r < FT_RRUN; ++r) {
+    load_row6(s, y0 + r + 2, q, dn);
+    const bool row_in = rows.in(r0 + r);
+    bool m[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = hessian_of(up[j], up[j + 1], up[j + 2], mid[j], mid[j + 1],
+                                 mid[j + 2], dn[j], dn[j + 1], dn[j + 2]);
+      m[j] = (!BORDER || (row_in && col_in[j])) && v < t;
+      mine |= (unsigned)m[j] << (4 * r + j);
+    }
+    unsigned bal[4];
+    const int4 lab = row_labels(m, i0 + r * wp, bal);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) count += __popc(bal[k]);
+    *reinterpret_cast<int4*>(labels + (size_t)r * wp) = lab;
+    *reinterpret_cast<float4*>(blur + (size_t)r * wp) =
+        make_float4(mid[1], mid[2], mid[3], mid[4]);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) up[j] = mid[j], mid[j] = dn[j];
+  }
+}
+
+// Launch (a) of the raw form, one instance per input mode (RAW_*): a block
+// is a (frame, 64-row tile, 64-column strip) and runs front_tile_kernel's
+// staging (without luma8) and blur passes (tile.cuh), then mask_run; the
+// block's list entries are reserved once, after all its rows.
+template <int RAW>
+__global__ void __launch_bounds__(THREADS, FT_BLOCKS)
+blur_mask_kernel(const void* raw, int hp, int wp, int h, int w, bool aligned,
+                 Taps7 taps, const float* thr, const int* roff, int gh, float* blur,
+                 int* labels, int* plist, int* npix) {
+  __shared__ __align__(16) FrontTileSmem s;
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  if constexpr (RAW == RAW_GRAY8) {
+    s.lut[tid] = __fdiv_rn((float)tid, 255.0f);
+    __syncthreads();
+  }
+  stage_quads<RAW, false>(s, raw, b, ti, si, hp, wp, w, aligned, nullptr);
+  blur_tile_passes(s, taps);
+  const int q = tid % (STRIP_W / 4), y0 = (tid / (STRIP_W / 4)) * FT_RRUN;
+  const int r0 = ti * TILE_H + y0, c = si * STRIP_W + 4 * q;
+  const int i0 = r0 * wp + c;
+  const size_t fbase = (size_t)b * hp * wp;
+  // the mask's rows: the window's 1 .. h - 2 and the frame's 1 .. gh - 2
+  // (gh == h without roff)
+  const Rows rows{h, roff != nullptr ? roff[b] : 0, gh, 1};
+  const float t = thr[b];
+  // a block that holds no pixel of the one-pixel border or of the padding,
+  // in a frame that is no window of a taller one, tests the response alone
+  const bool border = ti == 0 || (ti + 1) * TILE_H >= h || si == 0 ||
+                      (si + 1) * STRIP_W >= w || rows.ro != 0 || gh != h;
   unsigned mine = 0u;
   int count = 0;
-  for (int step = 0; step < TILE_H * STRIP_W / THREADS; ++step) {
-    const int idx = threadIdx.x + step * THREADS;
-    int y = idx / STRIP_W, x = idx % STRIP_W;
-    int r = ti * TILE_H + y, c = c0 + x;
-    int i = r * wp + c;
-    blur[fbase + i] = s.lum[y + 1][x + 1];
-    bool m = r > 0 && r < h - 1 && r + ro > 0 && r + ro < gh - 1 && c > 0 &&
-             c < w - 1 && hessian_at(s, y + 1, x + 1) < t;
-    const unsigned seg = __ballot_sync(FULL, m);
-    labels[fbase + i] = m ? i - lane + run_start(seg, lane) : -1;
-    mine |= (unsigned)m << step;
-    count += __popc(seg);
-  }
-  __shared__ int sh[2];
-  int at = reserve_entries(count, npix + b, sh);
-  for (int step = 0; step < TILE_H * STRIP_W / THREADS; ++step) {
-    const int idx = threadIdx.x + step * THREADS;
-    const bool m = (mine >> step) & 1u;
-    const unsigned seg = __ballot_sync(FULL, m);
-    if (m)
-      plist[fbase + at + __popc(seg & ((1u << lane) - 1u))] =
-          (ti * TILE_H + idx / STRIP_W) * wp + c0 + idx % STRIP_W;
-    at += __popc(seg);
+  if (border)
+    mask_run<true>(s, q, y0, r0, c, rows, w, t, wp, i0, blur + fbase + i0,
+                   labels + fbase + i0, mine, count);
+  else
+    mask_run<false>(s, q, y0, r0, c, rows, w, t, wp, i0, blur + fbase + i0,
+                    labels + fbase + i0, mine, count);
+  // warp_min is free after the passes: the two ints of reserve_entries
+  int at = reserve_entries(count, npix + b, reinterpret_cast<int*>(s.warp_min));
+  const unsigned below = (1u << (tid & 31)) - 1u;
+#pragma unroll
+  for (int k = 0; k < 4 * FT_RRUN; ++k) {
+    const bool m = (mine >> k) & 1u;
+    const unsigned bal = __ballot_sync(FULL, m);
+    if (m) plist[fbase + at + __popc(bal & below)] = i0 + (k >> 2) * wp + (k & 3);
+    at += __popc(bal);
   }
 }
 
@@ -185,31 +274,14 @@ mask_kernel(const float* blur, int hp, int wp, int h, int w, const float* thr,
              hessian_of(v[0][k], v[0][k + 1], v[0][k + 2], v[1][k], v[1][k + 1],
                         v[1][k + 2], v[2][k], v[2][k + 1], v[2][k + 2]) < t;
   }
-  // the row's mask bits: ballot k holds pixel k of every lane; a lane's
-  // 32-column segment is its octet of lanes, pixel k of lane l at bit
-  // 4 (l % 8) + k
-  const int lane = threadIdx.x & 31;
-  unsigned bal[4], seg = 0u;
+  unsigned bal[4];
+  *reinterpret_cast<int4*>(labels + fbase + i) = row_labels(m, i, bal);
   int count = 0;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    bal[k] = __ballot_sync(FULL, m[k]);
-    count += __popc(bal[k]);
-    unsigned x = (bal[k] >> (lane & 24)) & 0xffu;   // bit j -> bit 4 j
-    x = (x | (x << 12)) & 0x000f000fu;
-    x = (x | (x << 6)) & 0x03030303u;
-    x = (x | (x << 3)) & 0x11111111u;
-    seg |= x << k;
-  }
-  const int pos = 4 * (lane & 7), seg0 = i - pos;
-  int4 lab;
-  lab.x = m[0] ? seg0 + run_start(seg, pos) : -1;
-  lab.y = m[1] ? seg0 + run_start(seg, pos + 1) : -1;
-  lab.z = m[2] ? seg0 + run_start(seg, pos + 2) : -1;
-  lab.w = m[3] ? seg0 + run_start(seg, pos + 3) : -1;
-  *reinterpret_cast<int4*>(labels + fbase + i) = lab;
+  for (int k = 0; k < 4; ++k) count += __popc(bal[k]);
   __shared__ int sh[2];
   int at = reserve_entries(count, npix + b, sh);
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (m[k]) plist[fbase + at + __popc(bal[k] & ((1u << lane) - 1u))] = i + k;
@@ -425,10 +497,18 @@ extern "C" int ag_cluster_rochade_raw(
   cudaStream_t st = (cudaStream_t)stream;
   ag::Taps7 taps;
   for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
+  // the quads' 4- (u8, RGB: 12), 8- (u16) or 16-byte (f32) loads; rows
+  // start 128-byte aligned
+  const bool aligned =
+      (uintptr_t)raw % (mode == ag::MODE_F32 ? 16 : mode == ag::MODE_U16 ? 8 : 4) == 0;
+  auto kernel = channels == 3          ? blur_mask_kernel<ag::RAW_RGB8>
+                : mode == ag::MODE_F32 ? blur_mask_kernel<ag::RAW_F32>
+                : mode == ag::MODE_U16 ? blur_mask_kernel<ag::RAW_GRAY16>
+                                       : blur_mask_kernel<ag::RAW_GRAY8>;
   dim3 tgrid(wp / ag::STRIP_W, hp / ag::TILE_H, b);
-  blur_mask_kernel<<<tgrid, ag::THREADS, 0, st>>>(
-      raw, hp, wp, channels, mode, h, w, taps, (const float*)thr,
-      (const int*)roff, gh, (float*)blur, (int*)labels, (int*)plist, (int*)ctr);
+  kernel<<<tgrid, ag::THREADS, 0, st>>>(
+      raw, hp, wp, h, w, aligned, taps, (const float*)thr, (const int*)roff, gh,
+      (float*)blur, (int*)labels, (int*)plist, (int*)ctr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_components((const float*)blur, b, hp, wp, h, w, (const int*)roff,

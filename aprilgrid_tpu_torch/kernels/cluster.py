@@ -66,6 +66,20 @@ _CAPF = 1024  # accepted-candidate capacity PER FRAME (append-compacted)
 _MODE_F32 = 2  # csrc/stencil.cuh: the frame is an f32 luma plane
 
 
+def candidate_mask_plain(blur: torch.Tensor, thr: torch.Tensor, ro: int = 0,
+                         gh: int | None = None) -> torch.Tensor:
+    """The cluster mask of one (h, w) blur plane: ``resp < thr`` inside the
+    image's one-pixel border and, for a window (row r is row r + ``ro`` of
+    a ``gh``-row frame), inside the frame's."""
+    h, w = blur.shape
+    gh = h if gh is None else gh
+    resp = hessian_response(blur)
+    r = torch.arange(h, device=blur.device)[:, None]
+    c = torch.arange(w, device=blur.device)[None, :]
+    return ((r > 0) & (r < h - 1) & (r + ro > 0) & (r + ro < gh - 1)
+            & (c > 0) & (c < w - 1) & (resp < thr))
+
+
 def candidate_rows_plain(blur: torch.Tensor, thr: torch.Tensor,
                          hp2: int = 4, move_thr: float = 1.0, ro: int = 0,
                          gh: int | None = None) -> torch.Tensor:
@@ -77,13 +91,7 @@ def candidate_rows_plain(blur: torch.Tensor, thr: torch.Tensor,
     frame's and emits y in the frame's rows."""
     h, w = blur.shape
     gh = h if gh is None else gh
-    dev = blur.device
-    resp = hessian_response(blur)
-    r = torch.arange(h, device=dev)[:, None]
-    c = torch.arange(w, device=dev)[None, :]
-    mask = ((r > 0) & (r < h - 1) & (r + ro > 0) & (r + ro < gh - 1)
-            & (c > 0) & (c < w - 1) & (resp < thr))
-    root, centers = cluster_centroids(mask)
+    root, centers = cluster_centroids(candidate_mask_plain(blur, thr, ro, gh))
     rx = rust_round(centers[:, 0]).to(torch.int64)
     ry = rust_round(centers[:, 1]).to(torch.int64)
     in_b = ((ry - hp2 >= 0) & (ry + hp2 < h) & (ry + ro - hp2 >= 0) & (ry + ro + hp2 < gh)
@@ -123,16 +131,21 @@ def cluster_from_blur_plain(blur: torch.Tensor, thr: torch.Tensor,
     return fields, counts
 
 
+def raw_blur_plain(raw_p, h, w, channels=1, u16=False, sigma=1.5, luma_f32=False):
+    """The (B, h, w) blur plane that ``cluster_rochade_raw_plain`` clusters:
+    the blur of the padded frame, whose margins are the frame's replicated
+    edges or a window's neighbouring rows."""
+    lf = raw_p[:, :, : w * channels]
+    if not luma_f32:
+        lf, _ = raw_luma(lf, channels, u16)
+    return gaussian_blur(lf, sigma)[:, 8 : 8 + h]
+
+
 def cluster_rochade_raw_plain(raw_p, thr, h, w, channels=1, u16=False,
                               sigma=1.5, hp2=4, move_thr=1.0, luma_f32=False,
                               row_off=None, global_h=None):
     """Plain PyTorch version of ``cluster_rochade_raw``."""
-    # the blur of the padded frame: its margins are the frame's replicated
-    # edges, or a window's neighbouring rows
-    lf = raw_p[:, :, : w * channels]
-    if not luma_f32:
-        lf, _ = raw_luma(lf, channels, u16)
-    blur = gaussian_blur(lf, sigma)[:, 8 : 8 + h]
+    blur = raw_blur_plain(raw_p, h, w, channels, u16, sigma, luma_f32)
     return cluster_from_blur_plain(blur, thr, hp2, move_thr, row_off, global_h)
 
 

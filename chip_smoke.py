@@ -333,6 +333,7 @@ def phase_kernels(card: str, batch: int, names=tuple(GOLDEN)) -> dict:
     nms_synthetic_check()
     refine_synthetic_check()
     cluster_synthetic_check()
+    cluster_raw_synthetic_check()
     front_synthetic_check()
     front_decimate_synthetic_check()
 
@@ -692,6 +693,44 @@ def synthetic_luma_thresholds(names, half_p, thr, h: int, w: int, **other):
     return torch.where(share == 0.0, thr, rthr)
 
 
+def _held_candidates(label: str, names, f, c, pf, pc, blur, thr) -> list:
+    """A cluster entry's (fields, counts) against its plain version's on
+    the same frames (``blur``: the plain blur planes the masks come from,
+    ``thr`` their thresholds): counts equal and sorted fields bit-equal; in
+    a frame whose accepted roots overflow the 1024 rows the kernel's rows
+    are 1024 different rows of the plain version's uncut list. Returns the
+    accepted roots of each frame before the cut."""
+    import torch
+
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        _CAPF,
+        candidate_rows_plain,
+        sort_candidates,
+    )
+
+    if not torch.equal(c, pc):
+        raise AssertionError(f"{label}: counts {c[:, 0].tolist()} vs {pc[:, 0].tolist()}")
+    (sf, _), (spf, _) = sort_candidates(f), sort_candidates(pf)
+    accepted = []
+    for i, name in enumerate(names):
+        n = int(c[i, 0])
+        every = candidate_rows_plain(blur[i], thr[i])
+        if every.shape[0] <= _CAPF:
+            same = torch.equal(sf[i], spf[i])
+        else:
+            # any 1024 of the accepted roots: each row is the plain row of
+            # its label, no label twice
+            at = torch.searchsorted(every[:, 7].contiguous(), sf[i, :, 7].contiguous())
+            at = at.clamp(max=every.shape[0] - 1)
+            same = (n == _CAPF and torch.equal(every[at], sf[i])
+                    and bool((sf[i, 1:, 7] > sf[i, :-1, 7]).all()))
+        if not same:
+            raise AssertionError(f"{label} {name}: fields differ from the plain version "
+                                 f"({n} rows of {every.shape[0]} accepted)")
+        accepted.append(every.shape[0])
+    return accepted
+
+
 def cluster_synthetic_check() -> None:
     """Both cluster entries against their plain versions on the synthetic
     planes, one batch with a different mask per frame: ``cluster_rochade``
@@ -705,12 +744,10 @@ def cluster_synthetic_check() -> None:
     from aprilgrid_tpu_torch.config import CONSTANTS
     from aprilgrid_tpu_torch.kernels.cluster import (
         _CAPF,
-        candidate_rows_plain,
         cluster_rochade,
         cluster_rochade_plain,
         cluster_rochade_raw,
         cluster_rochade_raw_plain,
-        sort_candidates,
     )
     from aprilgrid_tpu_torch.kernels.frontend import pad_half
     from aprilgrid_tpu_torch.ops.cluster import label_components
@@ -737,37 +774,66 @@ def cluster_synthetic_check() -> None:
     inner = (rr > 0) & (rr < h - 1) & (cc > 0) & (cc < w - 1)
     index = torch.arange(h * w, device="cuda").reshape(h, w)
     for entry, blur, t, (f, c), (pf, pc) in runs:
-        if not torch.equal(c, pc):
-            raise AssertionError(f"{entry} synthetic: counts {c[:, 0].tolist()} vs "
-                                 f"{pc[:, 0].tolist()}")
+        every = _held_candidates(f"{entry} synthetic", names, f, c, pf, pc, blur, t)
         mask = inner & (hessian_response(blur) < t[:, None, None])
         roots = (mask & (label_components(mask) == index)).sum((1, 2)).tolist()
-        (sf, _), (spf, _) = sort_candidates(f), sort_candidates(pf)
-        said, overflowed = [], False
-        for i, name in enumerate(names):
-            n = int(c[i, 0])
-            every = candidate_rows_plain(blur[i], t[i])
-            if every.shape[0] <= _CAPF:
-                same = torch.equal(sf[i], spf[i])
-            else:
-                # any 1024 of the accepted roots: each row is the plain row
-                # of its label, no label twice
-                overflowed = True
-                at = torch.searchsorted(every[:, 7].contiguous(), sf[i, :, 7].contiguous())
-                at = at.clamp(max=every.shape[0] - 1)
-                same = (n == _CAPF and torch.equal(every[at], sf[i])
-                        and bool((sf[i, 1:, 7] > sf[i, :-1, 7]).all()))
-            if not same:
-                raise AssertionError(
-                    f"{entry} synthetic {name}: fields differ from the plain version "
-                    f"({n} rows of {every.shape[0]} accepted)")
-            said.append(f"{name} {int(mask[i].sum())} masked/{roots[i]} roots/"
-                        f"{every.shape[0]} accepted")
-        if not overflowed:
+        if max(every) <= _CAPF:
             raise AssertionError(f"{entry} synthetic: no frame overflows {_CAPF} rows")
+        said = [f"{name} {int(mask[i].sum())} masked/{roots[i]} roots/{every[i]} accepted"
+                for i, name in enumerate(names)]
         print(f"kernels {entry} synthetic {h}x{w} b{b}: counts equal, sorted fields "
               f"bit-equal (overflowing frames: rows of the uncut plain list); "
               + ", ".join(said), flush=True)
+
+
+def cluster_raw_synthetic_check() -> None:
+    """``cluster_rochade_raw`` against its plain version on synthetic raw
+    frames (``synthetic_raw_frames``) of every raw mode and every shape of
+    ``FRONT_SHAPES`` at batch 1 and 3, once per raw mode on a raw array one
+    element off alignment, and in its ``luma_f32`` mode on the half planes
+    of those frames (``front_kernel_decimate``'s; the first shape's also
+    one element off alignment): counts equal and sorted fields bit-equal.
+    Launch (a)'s four staging modes, its border blocks and its per-element
+    quads all run here. The thresholds are the paths': the ratio times the
+    frame's minimum response."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.cluster import (
+        cluster_rochade_raw,
+        cluster_rochade_raw_plain,
+        raw_blur_plain,
+    )
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate, pad_raw
+
+    sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
+    n, accepted = 0, 0
+    for mode in ("u8", "u16", "rgb"):
+        for h, w in FRONT_SHAPES:
+            for batch in (1, 3):
+                frames = torch.from_numpy(
+                    synthetic_raw_frames(mode, h, w, batch, seed=200 + n)).cuda()
+                raw_p, _, _, ch, u16 = pad_raw(frames)
+                thr = front_kernel(raw_p, sigma, (h, w), ch, u16)[1].amin(-1) * ratio
+                _, half_p, hmin = front_kernel_decimate(raw_p, sigma, (h, w), ch, u16)
+                hthr = hmin.amin(-1) * ratio
+                runs = [("raw", raw_p, thr, (h, w, ch, u16), False),
+                        ("luma_f32", half_p, hthr, (h // 2, w // 2, 1, False), True)]
+                if (h, w) == FRONT_SHAPES[0] and batch == 3:
+                    runs += [(f"{k} misaligned", _misaligned(a), t, shape, lf)
+                             for k, a, t, shape, lf in runs]
+                for label, a, t, shape, lf in runs:
+                    f, c = cluster_rochade_raw(a, t, *shape, sigma, luma_f32=lf)
+                    pf, pc = cluster_rochade_raw_plain(a, t, *shape, sigma, luma_f32=lf)
+                    torch.cuda.synchronize()
+                    blur = raw_blur_plain(a, *shape, sigma, lf)
+                    names = [f"{mode} {h}x{w} b{batch} {label} frame {i}" for i in range(batch)]
+                    accepted += sum(_held_candidates("cluster_rochade_raw synthetic", names,
+                                                     f, c, pf, pc, blur, t))
+                    n += 1
+    print(f"kernels cluster_rochade_raw synthetic: u8/u16/rgb x {FRONT_SHAPES} x b1/b3, "
+          f"raw and luma_f32 + a misaligned pointer per mode ({n} runs, {accepted} "
+          "accepted roots): counts equal, sorted fields bit-equal", flush=True)
 
 
 def _print_ptxas(source: str) -> list[dict]:

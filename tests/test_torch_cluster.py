@@ -392,3 +392,164 @@ def test_cluster_row_off_matches_jax(data_dir, luma_f32):
         # y counts the frame's rows: row r of window i is row r + roff[i]
         lab_row = (got[:, 7].astype(np.int64) - 1) // w
         assert np.abs(got[:, 1] - (lab_row + int(roff[i]))).max() < 30
+
+
+# ---- numpy model of launch (a) of csrc/cluster.cu (blur_mask_kernel) ----
+#
+# The kernel's blocks stage and blur as front_tile_kernel's do (the passes
+# of csrc/tile.cuh, modelled in tile_model.py), then walk the Hessian rows
+# in the same thread layout and emit the mask: a warp's four ballots a row
+# step, each octet's 32 segment bits, each masked pixel's run start within
+# its aligned 32-column segment, 16-byte blur and label rows, the masked
+# pixels into the frame's list. The model's planes must be the plain
+# chain's: its blur, its mask, labels by the run-start definition, the
+# list the set of masked pixels.
+
+
+def _bit_length(v):
+    """32 - clz of uint64 values below 2^32."""
+    return sum(((v >> np.uint64(k)) != 0).astype(np.int64) for k in range(32))
+
+
+def _launch_a_model(raw, channels, u16, true_shape, thr, aligned=True, ro=None, gh=None):
+    """(blur (B, Hp, Wp), labels (B, Hp, Wp), listed pixel indices per
+    frame) as launch (a)'s blocks compute them."""
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_kernel
+    from tile_model import RRUN, T, hessian_rows, stage_model, stencil_model
+
+    h, w = true_shape
+    lum, _ = stage_model(raw, channels, u16, w, aligned)
+    b, n_t, n_s = lum.shape[:3]
+    hp, wp = n_t * T, n_s * T
+    blurred, _ = stencil_model(lum, true_shape, gaussian_kernel(1.5))
+    v = hessian_rows(blurred)                                     # (B, T, S, 64, 64)
+
+    # the mask: Rows{h, ro, gh, inset=1}, columns in [1, w - 1), resp < t;
+    # a block with no border pixel in a frame of its own tests resp alone
+    ro = np.zeros(b, np.int64) if ro is None else np.asarray(ro, np.int64)
+    gh = h if gh is None else gh
+    rr = (T * np.arange(n_t)[:, None] + np.arange(T))[None, :, None, :, None]
+    cc = (T * np.arange(n_s)[:, None] + np.arange(T))[None, None, :, None, :]
+    g = rr + ro[:, None, None, None, None]
+    inside = ((rr < h) & (g > 0) & (g < gh - 1) & (rr >= 1) & (rr < h - 1)
+              & (cc != 0) & (cc < w - 1))
+    ti, si = np.arange(n_t)[:, None], np.arange(n_s)[None, :]
+    border = (((ti == 0) | ((ti + 1) * T >= h) | (si == 0) | ((si + 1) * T >= w))[None]
+              | (ro != 0)[:, None, None] | (gh != h))                # (B, T, S)
+    lt = v < np.asarray(thr, np.float32)[:, None, None, None, None]
+    assert (inside | border[..., None, None]).all()
+    m = np.where(border[..., None, None], inside & lt, lt)
+
+    # warp k, lane l = 16 half + q: rows 8k + 4 half + r, columns 4q + j;
+    # ballot (r, j) holds pixel j of row step r of every lane
+    mw = m.reshape(b, n_t, n_s, 8, 2, RRUN, 16, 4).transpose(0, 1, 2, 3, 5, 7, 4, 6)
+    mw = mw.reshape(b, n_t, n_s, 8, RRUN, 4, 32)
+    lane = np.arange(32, dtype=np.uint64)
+    bal = (mw.astype(np.uint64) << lane).sum(-1)                  # (..., r, j)
+    x = (bal[..., None] >> (lane & np.uint64(24))) & np.uint64(0xFF)  # (..., r, j, lane)
+    for shift, keep in ((12, 0x000F000F), (6, 0x03030303), (3, 0x11111111)):
+        x = (x | (x << np.uint64(shift))) & np.uint64(keep)
+    seg = np.bitwise_or.reduce(x << np.arange(4, dtype=np.uint64)[:, None], axis=-2)
+    pos = 4 * (lane & np.uint64(7))
+    # label - pixel index of pixel j: run_start(seg, pos + j) - pos - j
+    off = np.stack([
+        _bit_length(~seg & ((np.uint64(1) << (pos + np.uint64(j))) - np.uint64(1)))
+        - pos.astype(np.int64) - j for j in range(4)], -1)        # (..., r, lane, j)
+    off = off.reshape(b, n_t, n_s, 8, RRUN, 2, 16, 4).transpose(0, 1, 2, 3, 5, 4, 6, 7)
+    off = off.reshape(b, n_t, n_s, T, T)
+    index = (rr * wp + cc)[0, :, :]                               # (T, S, 64, 64)
+    labels = np.where(m, index + off, -1)
+
+    def plane(a):
+        return a.transpose(0, 1, 3, 2, 4).reshape(b, hp, wp)
+
+    # each thread's mask bits after the block's reservation: its pixels
+    listed = [np.sort(index[m[i]]) for i in range(b)]
+    return plane(blurred[..., 1:65, 1:65]), plane(labels), listed
+
+
+def _run_start_labels(mask):
+    """Labels (B, Hp, Wp) by definition: -1 unmasked; a masked pixel's the
+    index of the first pixel of its run inside its aligned 32-column
+    segment."""
+    b, hp, wp = mask.shape
+    col = np.arange(wp)
+    # where each pixel's run would start: after the last unmasked column
+    # before it in its segment, or at the segment's first column
+    start = np.where(mask, col // 32 * 32, col + 1).reshape(b, hp, wp // 32, 32)
+    start = np.maximum.accumulate(start, axis=-1).reshape(b, hp, wp)
+    return np.where(mask, np.arange(hp)[:, None] * wp + start, -1)
+
+
+def _check_launch_a(raw_p, h, w, ch, u16, luma_f32=False, row_off=None, gh=None,
+                    unaligned=False):
+    from aprilgrid_tpu_torch.kernels.cluster import candidate_mask_plain, raw_blur_plain
+    from aprilgrid_tpu_torch.ops.frontend import hessian_response
+
+    blur = raw_blur_plain(raw_p, h, w, ch, u16, 1.5, luma_f32)
+    # a threshold that masks about a quarter of each frame's inner pixels
+    thr = torch.stack([torch.quantile(hessian_response(f)[1:-1, 1:-1], 0.25) for f in blur])
+    offs = [0] * len(blur) if row_off is None else row_off.tolist()
+    want = np.zeros((len(blur), raw_p.shape[1] - 16, raw_p.shape[2] // ch), bool)
+    for i in range(len(blur)):
+        want[i, :h, :w] = candidate_mask_plain(blur[i], thr[i], offs[i], gh).numpy()
+    assert 0.1 < want.sum() / (len(blur) * h * w) < 0.4
+    raw = raw_p.view(torch.int16).numpy().view(np.uint16) if u16 else raw_p.numpy()
+    runs = [True, False] if unaligned else [True]
+    for aligned in runs:
+        mblur, labels, listed = _launch_a_model(raw, ch, u16, (h, w), thr.numpy(), aligned,
+                                                None if row_off is None else offs, gh)
+        np.testing.assert_array_equal(mblur[:, :h, :w], blur.numpy())
+        np.testing.assert_array_equal(labels >= 0, want)
+        np.testing.assert_array_equal(labels, _run_start_labels(want))
+        for i, got in enumerate(listed):
+            np.testing.assert_array_equal(got, np.flatnonzero(want[i]))
+
+
+@pytest.mark.parametrize("shape", [(100, 200), (64, 130), (37, 50), (129, 257)])
+@pytest.mark.parametrize("mode", ["u8", "u16", "rgb"])
+def test_launch_a_model_equals_plain(mode, shape):
+    """Launch (a) on the raw frames the smoke holds it to on the card."""
+    import chip_smoke
+
+    assert shape in chip_smoke.FRONT_SHAPES
+    h, w = shape
+    img = chip_smoke.synthetic_raw_frames(mode, h, w, 2, seed=h + w)
+    raw_p, _, _, ch, u16 = pad_raw(torch.from_numpy(img))
+    _check_launch_a(raw_p, h, w, ch, u16)
+
+
+@pytest.mark.parametrize("mode", ["u8", "u16", "rgb"])
+def test_launch_a_model_unaligned(mode):
+    """An unaligned raw pointer: every quad takes the per-element path."""
+    import chip_smoke
+
+    img = chip_smoke.synthetic_raw_frames(mode, 100, 200, 2, seed=3)
+    raw_p, _, _, ch, u16 = pad_raw(torch.from_numpy(img))
+    _check_launch_a(raw_p, 100, 200, ch, u16, unaligned=True)
+
+
+@pytest.mark.parametrize("shape", [(100, 200), (129, 257)])
+def test_launch_a_model_luma_f32(shape):
+    """The f32 half plane (pad_half's layout, the turbo drain's input) of a
+    ragged frame, with its 16-byte quads and unaligned."""
+    import chip_smoke
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate_plain
+
+    h, w = shape
+    img = chip_smoke.synthetic_raw_frames("u8", h, w, 2, seed=h * w)
+    raw_p, _, _, ch, u16 = pad_raw(torch.from_numpy(img))
+    _, half_p, _ = front_kernel_decimate_plain(raw_p, 1.5, shape, ch, u16)
+    _check_launch_a(half_p, h // 2, w // 2, 1, False, luma_f32=True, unaligned=True)
+
+
+def test_launch_a_model_row_off():
+    """Windows of a frame cut into two bands (row_windows): the frame's
+    rows gate the mask as well as the window's."""
+    import chip_smoke
+    from aprilgrid_tpu_torch.parallel.sharding import row_windows
+
+    img = chip_smoke.synthetic_raw_frames("u8", 120, 200, 1, seed=5)[0]
+    wins, roff, local_h, gh = row_windows(torch.from_numpy(img), 2)
+    assert roff[0] < 0 < roff[1]
+    _check_launch_a(wins, local_h, 200, 1, False, row_off=roff, gh=gh)

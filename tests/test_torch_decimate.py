@@ -124,7 +124,7 @@ _DECIMATE_SHAPES = [(129, 257), (37, 50), (256, 512)]
 def _decimate_model(raw, channels, u16, true_shape, taps, aligned=True):
     """(luma8 (B, Hp, Wp), half_p (B, Hhp+16, Whp), tile_min (B, Hhp/64))
     as the kernel's blocks compute them."""
-    from test_torch_frontend import _T, _luma_model, _stencil_model
+    from tile_model import T as _T, luma_model, stencil_model
 
     h, w = true_shape
     hh, wh = h // 2, w // 2
@@ -133,7 +133,7 @@ def _decimate_model(raw, channels, u16, true_shape, taps, aligned=True):
     hhp, whp = -(-hh // _T) * _T, -(-wh // 128) * 128
     n_ht, n_hs = hhp // _T, whp // _T
     n_t, n_s = max(n_ht, -(-hp // (2 * _T))), max(n_hs, wp // (2 * _T))
-    lf, l8 = _luma_model(raw.reshape(b, rows, wp, channels), channels, u16)
+    lf, l8 = luma_model(raw.reshape(b, rows, wp, channels), channels, u16)
 
     # staging: staged row y = half row clamp(64 ti - 4 + y); quad k = half
     # columns 64 si - 4 + 4k .. +3, raw columns 2x, 2x + 1 of each
@@ -186,7 +186,7 @@ def _decimate_model(raw, channels, u16, true_shape, taps, aligned=True):
                     n8[r : r + 2, c : c + 8] += 1
     assert (n8 == 1).all()
 
-    _, strip_min = _stencil_model(lum, (hh, wh), taps)
+    _, strip_min = stencil_model(lum, (hh, wh), taps)
     return luma8, half_p, strip_min.min(-1)
 
 

@@ -27,6 +27,7 @@ from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
 from aprilgrid_tpu_torch.ops.gray import to_luma
 from aprilgrid_tpu_torch.pipeline import normalize_raw_batch
 from conftest import make_stress_scene
+from tile_model import T as _T, stage_model, stencil_model, u8_lut
 
 
 def _t(a):
@@ -155,140 +156,25 @@ def test_front_kernel_plain_matches_jax(kind):
 # ---- numpy model of csrc/frontend.cu::front_tile_kernel -----------------
 #
 # The CUDA kernel runs only on the card; these tests pin its premises on
-# the CPU: a numpy walk over its blocks with its index maps (staged quads,
+# the CPU: a numpy walk over its blocks with its index maps (tile_model.py,
+# the passes of csrc/tile.cuh, which cluster.cu shares: staged quads,
 # clamped columns, 16-output horizontal windows of 24 staged columns and a
 # 2-output tail window of columns 64..71, 7-row vertical windows over runs
 # of 6 rows, 3-row Hessian windows over runs of 4 rows, 16-byte blur rows,
 # the border test only in blocks that hold a border pixel, one minimum per
 # 64 x 64 block) gives front_kernel_plain's bits.
 
-_T, _QUADS, _HGROUP, _VQUADS, _VRUN, _RRUN = 64, 18, 16, 17, 6, 4
 # (h, w): no multiple of 64 rows, 64 or 128 columns; narrower than a strip
 _RAGGED = [(100, 200), (64, 130), (37, 50), (129, 257)]
-
-
-def _u8_lut():
-    """The kernel's u8 gray table: v / 255 as one f32 IEEE divide."""
-    return np.arange(256, dtype=np.float32) / np.float32(255.0)
-
-
-def _stage_model(raw, channels, u16, w, aligned):
-    """Staged luma (B, T, S, 72, 72) f32 and the luma8 of each staged quad
-    (B, T, S, 72, 18, 4), from raw (B, Hp+16, Wp*C) as the kernel reads it:
-    staged row y of tile ti is padded row 64 ti + 4 + y; quad k of strip si
-    covers columns 64 si - 4 + 4k .. +3, clamped to [0, w) per element
-    only where a quad leaves the frame or the frame is unaligned."""
-    b, rows, row_elems = raw.shape
-    hp, wp = rows - 16, row_elems // channels
-    n_t, n_s = hp // _T, wp // _T
-    pr = (_T * np.arange(n_t)[:, None] + 4 + np.arange(72)[None, :])      # (T, 72)
-    c = (_T * np.arange(n_s)[:, None, None] - 4
-         + 4 * np.arange(_QUADS)[None, :, None] + np.arange(4)[None, None, :])
-    vec = ((c[..., :1] >= 0) & (c[..., 3:] < w)) & aligned               # (S, 18, 1)
-    cc = np.where(vec, c, np.clip(c, 0, w - 1))
-    assert cc.min() >= 0 and cc.max() < wp      # no load leaves the row
-    interior = np.ones(n_s, bool)
-    interior[0] = False
-    interior &= _T * np.arange(n_s) + _T + 4 <= w
-    if aligned:                                  # no clamp inside the frame
-        assert vec[interior].all()
-    px = raw[:, pr[:, None, :, None, None, None],
-             (cc[None, :, None] * channels)[..., None] + np.arange(channels)]
-    lf, l8 = _luma_model(px, channels, u16)      # (B, T, S, 72, 18, 4)
-    return lf.reshape(b, n_t, n_s, 72, 72), l8
-
-
-def _luma_model(px, channels, u16):
-    """(f32 luma, luma8) of raw pixels px (..., C) as the kernels convert
-    them."""
-    px = px.astype(np.int64)
-    if channels == 3:
-        r, g, bl = px[..., 0], px[..., 1], px[..., 2]
-        cr, cg, cb = (np.float64(np.float32(v / 255.0)) for v in (0.2126, 0.7152, 0.0722))
-        acc = (r.astype(np.float32) * np.float32(cr)).astype(np.float64)
-        acc = (g * cg + acc).astype(np.float32).astype(np.float64)
-        lf = (bl * cb + acc).astype(np.float32)            # two fused multiply-adds
-        l8 = (2126 * r + 7152 * g + 722 * bl) // 10000
-    elif u16:
-        x = px[..., 0].astype(np.float32)
-        lf = x / np.float32(65535.0)
-        l8 = np.floor((x * np.float32(255.0) + np.float32(32767.0)) / np.float32(65535.0))
-    else:
-        lf = _u8_lut()[px[..., 0]]
-        l8 = px[..., 0]
-    return lf, l8.astype(np.uint8)
-
-
-def _hessian_model(up, mid, dn):
-    """hessian_of on three rows of a window, every column j the centre of
-    j .. j + 2."""
-    two = np.float32(2.0)
-    lxx = (mid[..., :-2] - two * mid[..., 1:-1]) + mid[..., 2:]
-    lyy = (up[..., 1:-1] - two * mid[..., 1:-1]) + dn[..., 1:-1]
-    lxy = (((up[..., 2:] - up[..., :-2]) + dn[..., :-2]) - dn[..., 2:]) * np.float32(0.25)
-    return lxx * lyy - lxy * lxy
-
-
-def _stencil_model(lum, true_shape, taps):
-    """The kernels' passes on staged tiles lum (B, T, S, 72, 72) of an
-    image of true shape (h, w): (blurred tiles (B, T, S, 66, 68), entry
-    (y, x) the blur at image pixel (64 ti - 1 + y, 64 si - 1 + x); tile
-    minima of the response (B, T, S), its border zeroed)."""
-    h, w = true_shape
-    n_t, n_s = lum.shape[1:3]
-    taps = [np.float32(t) for t in taps]
-
-    # horizontal pass: group g = outputs 16g .. 16g + 15 from the window of
-    # staged columns 16g .. 16g + 23, the tail = outputs 64, 65 from
-    # columns 64..71 (and zeros in 66, 67); each tap accumulated from 0 in
-    # order
-    tmp = np.empty(lum.shape[:4] + (4 * _VQUADS,), np.float32)
-    for x0 in range(0, _T + 1, _HGROUP):
-        n_out = _HGROUP if x0 < _T else 2
-        win = lum[..., x0 : x0 + _HGROUP + 8]
-        assert win.shape[-1] == n_out + 6 + (2 if x0 < _T else 0)
-        acc = np.zeros(win.shape[:-1] + (n_out,), np.float32)
-        for k, t in enumerate(taps):
-            acc = acc + win[..., k : k + n_out] * t
-        tmp[..., x0 : x0 + n_out] = acc
-    tmp[..., 66:68] = 0
-
-    # vertical pass: run of 6 rows from a 7-row window, quads 0..16
-    blurred = np.empty(lum.shape[:3] + (66, 4 * _VQUADS), np.float32)
-    for run in range(66 // _VRUN):
-        for r in range(run * _VRUN, (run + 1) * _VRUN):
-            acc = np.zeros(lum.shape[:3] + (4 * _VQUADS,), np.float32)
-            for k, t in enumerate(taps):
-                acc = acc + tmp[..., r + k, : 4 * _VQUADS] * t
-            blurred[..., r, :] = acc
-
-    # Hessian: thread (run, quad) walks rows 4 run .. 4 run + 3 with the
-    # rows above and below
-    rr = _T * np.arange(n_t)[:, None, None] + np.arange(_T)[None, None, :]   # (T, 1, 64)
-    cc = _T * np.arange(n_s)[None, :, None] + np.arange(_T)[None, None, :]   # (1, S, 64)
-    col_in = (cc != 0) & (cc < w - 1)
-    # blocks that hold no border pixel skip the test: none of theirs is 0
-    border = ((np.arange(n_t) == 0) | ((np.arange(n_t) + 1) * _T >= h))[:, None] | (
-        (np.arange(n_s) == 0) | ((np.arange(n_s) + 1) * _T >= w))[None, :]
-    inside = ((rr > 0) & (rr < h - 1)).all(-1) & col_in.all(-1)          # (T, S)
-    assert (inside | border).all()
-    resp = np.empty(lum.shape[:3] + (_T, _T), np.float32)
-    for run in range(_T // _RRUN):
-        for y in range(run * _RRUN, (run + 1) * _RRUN):
-            up, mid, dn = (blurred[..., y + d, :66] for d in range(3))
-            v = _hessian_model(up, mid, dn)
-            row_in = (rr[..., y] > 0) & (rr[..., y] < h - 1)
-            resp[..., y, :] = np.where(row_in[:, :, None] & col_in[:, :, :], v, 0)[None]
-    return blurred, resp.min(axis=(-2, -1))
 
 
 def _front_tile_model(raw, channels, u16, true_shape, taps, aligned=True):
     """(luma8 (B, Hp, Wp), blur (B, Hp, Wp), tile_min (B, Hp/64)) as the
     kernel's blocks compute them."""
-    lum, l8q = _stage_model(raw, channels, u16, true_shape[1], aligned)
+    lum, l8q = stage_model(raw, channels, u16, true_shape[1], aligned)
     b, n_t, n_s = lum.shape[:3]
     hp, wp = n_t * _T, n_s * _T
-    blurred, strip_min = _stencil_model(lum, true_shape, taps)
+    blurred, strip_min = stencil_model(lum, true_shape, taps)
     # the blurred tile's own pixels, 16-byte rows from the Hessian pass
     blur = blurred[..., 1:65, 1:65].transpose(0, 1, 3, 2, 4).reshape(b, hp, wp)
 
@@ -329,7 +215,7 @@ def test_u8_luma_table_is_ieee_div():
     from aprilgrid_tpu_torch.ops.gray import ieee_div
 
     want = ieee_div(torch.arange(256, dtype=torch.float32), 255.0).numpy()
-    np.testing.assert_array_equal(_u8_lut().view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(u8_lut().view(np.int32), want.view(np.int32))
 
 
 def _fma32(a, b, c):

@@ -247,6 +247,17 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_version_is_the_jax_packages_and_pyprojects():
+    import tomllib
+
+    import aprilgrid_tpu
+    import aprilgrid_tpu_torch
+
+    project = tomllib.loads((Path(__file__).resolve().parent.parent / "pyproject.toml")
+                            .read_text())["project"]
+    assert aprilgrid_tpu_torch.__version__ == aprilgrid_tpu.__version__ == project["version"]
+
+
 def test_parse_ptxas_report():
     """The build keeps what ptxas says of each kernel; the parser reads
     name, registers, stack frame, spills and shared memory."""
