@@ -7,7 +7,7 @@ all that package does: the hybrid detector, exact and turbo
 board search in native C++ on the host; the xla mode (the board search on
 the card too); its streaming ingest, input adapters, and data-, camera-
 and pipeline-parallel forms over several devices; and the overlay,
-live-stream and chart surfaces.
+live-stream and chart surfaces, and the runnable examples.
 
 Public API (mirrors the reference's surface, reference src/lib.rs:1-8):
 
@@ -40,6 +40,8 @@ Not exported, as in the JAX package (import the module):
 * ``boards.generator`` — ``AprilGridBoard``, ``render_png``,
   ``svg_string``, ``pdf_bytes``, ``generate_chart``: Kalibr-compatible
   charts; ``python -m aprilgrid_tpu_torch.boards`` is their command line.
+* ``examples`` — the runnable ``demo``, ``develop`` and ``live`` scripts
+  (``python3 -m aprilgrid_tpu_torch.examples.<name>``).
 """
 
 import torch

@@ -25,6 +25,16 @@ call under ``AG_TIMELINE=1``: the per-label ms sums, the host's wait in
 the first ``pack_read`` and the time after the last ``fe_dispatch``.
 ``--trace`` adds the device-busy share of one call (torch.profiler).
 
+``--4k`` is the 4K camera-rig bench instead (the port of the JAX
+package's ``tools/bench_4k.py``): ``BENCH_CAMS`` (default 4) cameras x
+``BENCH_STEPS`` (default 8) steps of one 2160 x 3840 RGB frame, grey (128)
+with two_boards at its centre (``frame_4k``), in one ``detect_batch``
+call a rep, exact and turbo (``decimate="auto"``: the NMS extraction on
+hosts with more than one core; ``BENCH_DECIMATE=1`` runs turbo only). Each
+mode's line is a cell's record with ``cams`` and ``steps``: 72 tags on
+every frame, ID parity and ``corner_max_px`` against the port's CPU run
+of one frame, frames/s as median, min and max of ``BENCH_REPS``.
+
 ``--stream`` is the streamed-ingest bench instead (the port of the JAX
 package's ``tools/bench_stream.py``): ``BENCH_NBATCH`` (default 6) numpy
 batches of ``BENCH_BATCH`` (default 32) copies of one image (``--images``,
@@ -70,8 +80,20 @@ from .utils.profiling import device_busy
 
 TURBO_IMAGES = ("iphone", "two_boards")   # the turbo mode's frames: >= 2 MP
 # mode -> (decimate, AG_TURBO_NMS); the default --modes
-MODES = {"exact": (False, None), "turbo-nms": (True, "1"), "turbo-drain": (True, "0")}
+MODES = {"exact": (False, None), "turbo-nms": (True, "1"), "turbo-drain": (True, "0"),
+         "turbo": ("auto", None)}   # the 4K rig's turbo: the facade's own choices
+DEFAULT_MODES = ("exact", "turbo-nms", "turbo-drain")
 XLA_BATCH = 16   # the xla mode's default batch (the JAX bench's BENCH_MODE=xla)
+FOUR_K_TAGS = 72   # two_boards on the 4K canvas
+
+
+def frame_4k() -> np.ndarray:
+    """The 4K rig's frame (the JAX package's tools/bench_4k.py:29-41): a
+    2160 x 3840 RGB canvas filled with 128, two_boards (1080 x 1920) at
+    its centre."""
+    frame = np.full((2160, 3840, 3), 128, np.uint8)
+    frame[540:1620, 960:2880] = read_png(DATA / "two_boards.png")
+    return frame
 
 
 def card_name() -> str | None:
@@ -121,30 +143,38 @@ def _parity(res: list, ref: dict) -> tuple[bool, float]:
     return same, err
 
 
-def saddles_per_frame(img: np.ndarray, decimate: bool, device: str) -> int:
+def saddles_per_frame(det: TagDetector, img: np.ndarray) -> int:
     """The saddles the front-end hands the board search for one frame,
-    from the front-end the detector calls (the turbo mode's extraction
-    variant and peak merge as the environment selects them)."""
-    from .config import CONSTANTS, DEFAULT_CAPACITIES, DEFAULT_PARAMS
+    from the front-end ``det`` calls on it (exact or turbo as its
+    ``decimate`` policy resolves, the turbo extraction variant as its own
+    choice and the environment select it, the peak merge as the
+    environment selects it)."""
     from .pipeline import saddle_frontend_batch
 
-    frames = torch.from_numpy(img)[None].to(device)
-    cfg = (DEFAULT_PARAMS, CONSTANTS, DEFAULT_CAPACITIES)
-    return int(saddle_frontend_batch(frames, *cfg, decimate)[0].valid.sum())
+    h, w = img.shape[:2]
+    decimate = det._use_decimate(h, w)
+    nms = det._turbo_nms(h, w) if decimate else None
+    frames = torch.from_numpy(img)[None].to(det.device)
+    return int(saddle_frontend_batch(frames, det.params, det.consts, det.caps, decimate,
+                                     nms)[0].valid.sum())
 
 
 def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
-               host_frames: bool, timeline: bool, trace: bool, refs: dict) -> dict:
+               host_frames: bool, timeline: bool, trace: bool, refs: dict,
+               img: np.ndarray | None = None, golden: int | None = None) -> dict:
     """One cell: warm-up + checks, ``reps`` timed calls, optional timeline
-    and device-busy runs; returns its JSON record."""
+    and device-busy runs; returns its JSON record. The frame is the golden
+    image ``name`` unless ``img`` (with its tag count ``golden``) is
+    given."""
     from .ops.board import SYNCS
 
     decimate, nms_env = MODES.get(mode, (False, None))
     det_mode = "xla" if mode == "xla" else "hybrid"
+    if img is None:
+        img, golden = read_png(DATA / f"{name}.png"), GOLDEN[name]
     if nms_env is not None:
         os.environ["AG_TURBO_NMS"] = nms_env
     try:
-        img = read_png(DATA / f"{name}.png")
         if (name, mode) not in refs:
             refs[name, mode] = TagDetector("t36h11", device="cpu", mode=det_mode,
                                            decimate=decimate).detect(img)
@@ -160,9 +190,9 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
 
         res = call()  # warm-up: kernel builds, allocator, tables
         counts = [len(t) for t in res]
-        if any(n != GOLDEN[name] for n in counts):
+        if any(n != golden for n in counts):
             raise AssertionError(f"{name} {mode}: tag counts {sorted(set(counts))}, "
-                                 f"golden {GOLDEN[name]}")
+                                 f"golden {golden}")
         ids_equal, err = _parity(res, refs[name, mode])
         ms = []
         SYNCS.update(dict.fromkeys(SYNCS, 0))
@@ -181,7 +211,7 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
             "frames_on": "host" if host_frames else "device", "reps": reps,
             "frames_per_s": {"median": statistics.median(fps), "min": fps[0],
                              "max": fps[-1]},
-            "call_ms": ms, "tags": counts[0], "golden": GOLDEN[name],
+            "call_ms": ms, "tags": counts[0], "golden": golden,
             "ids_equal": ids_equal, "corner_max_px": err,
             "host_cores": os.cpu_count(),
             "search_threads": int(os.environ.get("AG_SEARCH_THREADS", "0")),
@@ -189,7 +219,7 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
             "fill_ramp": os.environ.get("AG_FILL_RAMP", "0"),
             "device": device, "card": card_name() if device != "cpu" else None,
             "nms_merge": os.environ.get("AG_NMS_MERGE", "0"),
-            "saddles_per_frame": saddles_per_frame(img, decimate, device),
+            "saddles_per_frame": saddles_per_frame(det, img),
             "search_syncs": syncs,
         }
         if timeline and det_mode == "hybrid":
@@ -207,6 +237,19 @@ def bench_cell(name: str, mode: str, device: str, batch: int, reps: int,
     finally:
         if nms_env is not None:
             del os.environ["AG_TURBO_NMS"]
+
+
+def bench_4k(device: str, cams: int, steps: int, reps: int,
+             modes=("exact", "turbo"), host_frames: bool = False,
+             timeline: bool = False, trace: bool = False):
+    """The 4K rig's records (module docstring), one per mode as each
+    finishes: ``cams * steps`` copies of ``frame_4k`` in one batch."""
+    frame, refs = frame_4k(), {}
+    for mode in modes:
+        rec = bench_cell("4k", mode, device, cams * steps, reps, host_frames, timeline,
+                         trace, refs, img=frame, golden=FOUR_K_TAGS)
+        rec.update(cams=cams, steps=steps)
+        yield rec
 
 
 STREAM_WAYS = ("serial", "numpy", "streamed", "device")
@@ -275,15 +318,31 @@ def bench_stream(name: str, device: str, batch: int, n_batches: int, reps: int,
     return recs
 
 
+def golden_cells(args, reps: int):
+    """The golden images' records under ``--modes`` and ``--images``, one
+    per cell as each finishes."""
+    env_batch = os.environ.get("BENCH_BATCH")
+    refs: dict = {}
+    for mode in args.modes.split(","):
+        if mode not in MODES and mode != "xla":
+            raise SystemExit(f"bench: unknown mode {mode!r}")
+        batch = int(env_batch) if env_batch else (XLA_BATCH if mode == "xla" else 128)
+        for name in (args.images or ",".join(GOLDEN)).split(","):
+            if MODES.get(mode, (False,))[0] and name not in TURBO_IMAGES:
+                continue
+            yield bench_cell(name, mode, args.device, batch, reps, args.host_frames,
+                             args.timeline, args.trace, refs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--images", default=None,
                     help="comma-separated golden images (default: all seven; "
                          "two_boards with --stream)")
-    ap.add_argument("--modes", default=",".join(MODES),
-                    help="comma-separated modes (exact, turbo-nms, turbo-drain, xla); "
-                         "the turbo ones run on the 1080p images only")
+    ap.add_argument("--modes", default=",".join(DEFAULT_MODES),
+                    help="comma-separated modes (exact, turbo-nms, turbo-drain, turbo, "
+                         "xla); the turbo ones run on the 1080p images only")
     ap.add_argument("--host-frames", action="store_true",
                     help="pass the batch as a numpy array (the facade uploads it "
                          "chunk by chunk)")
@@ -294,6 +353,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", nargs="?", const=",".join(STREAM_WAYS), default=None,
                     help="the streamed-ingest bench; optionally the ways to run, "
                          "comma-separated (default: serial,numpy,streamed,device)")
+    ap.add_argument("--4k", dest="four_k", action="store_true",
+                    help="the 4K camera-rig bench (env BENCH_CAMS, BENCH_STEPS, "
+                         "BENCH_DECIMATE)")
     args = ap.parse_args(argv)
     reps = int(os.environ.get("BENCH_REPS", "5"))
     if args.device != "cpu" and not torch.cuda.is_available():
@@ -308,24 +370,22 @@ def main(argv=None) -> int:
                                     args.stream.split(",")):
                 print(json.dumps(rec), flush=True)
         return 0
-    env_batch = os.environ.get("BENCH_BATCH")
-    refs: dict = {}
+    if args.four_k:
+        modes = ("turbo",) if os.environ.get("BENCH_DECIMATE", "") == "1" else (
+            "exact", "turbo")
+        recs = bench_4k(args.device, int(os.environ.get("BENCH_CAMS", "4")),
+                        int(os.environ.get("BENCH_STEPS", "8")), reps, modes,
+                        args.host_frames, args.timeline, args.trace)
+    else:
+        recs = golden_cells(args, reps)
     fps: dict = {}
     parity_ok = True
     batches = set()
-    for mode in args.modes.split(","):
-        if mode not in MODES and mode != "xla":
-            raise SystemExit(f"bench: unknown mode {mode!r}")
-        batch = int(env_batch) if env_batch else (XLA_BATCH if mode == "xla" else 128)
-        batches.add(batch)
-        for name in (args.images or ",".join(GOLDEN)).split(","):
-            if MODES.get(mode, (False,))[0] and name not in TURBO_IMAGES:
-                continue
-            rec = bench_cell(name, mode, args.device, batch, reps, args.host_frames,
-                             args.timeline, args.trace, refs)
-            parity_ok &= rec["ids_equal"] and rec["corner_max_px"] <= 1e-3
-            fps.setdefault(mode, []).append(rec["frames_per_s"]["median"])
-            print(json.dumps(rec), flush=True)
+    for rec in recs:
+        parity_ok &= rec["ids_equal"] and rec["corner_max_px"] <= 1e-3
+        fps.setdefault(rec["mode"], []).append(rec["frames_per_s"]["median"])
+        batches.add(rec["batch"])
+        print(json.dumps(rec), flush=True)
     print(json.dumps({
         "geomean_frames_per_s": {
             m: math.exp(sum(math.log(f) for f in v) / len(v)) for m, v in fps.items()},

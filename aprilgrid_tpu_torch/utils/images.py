@@ -1,9 +1,11 @@
-"""The repo's golden images, read without an image library.
+"""The repo's golden images and a user's image files.
 
 ``read_png`` decodes the bundled PNGs with numpy and zlib alone (the
-card's machine has no Pillow); ``DATA`` is the repo's ``tests/data`` and
-``GOLDEN`` the reference's tag counts for the images the port's bench and
-smoke run (reference: tests/test_detector.rs:25-33).
+bench and the smoke need no image library); ``load_image`` reads any
+image file with PIL as the examples do, keeping its bit depth and
+channels; ``DATA`` is the repo's ``tests/data`` and ``GOLDEN`` the
+reference's tag counts for the images the port's bench and smoke run
+(reference: tests/test_detector.rs:25-33).
 """
 
 from __future__ import annotations
@@ -78,3 +80,21 @@ def read_png(path) -> np.ndarray:
         img = (img[:, 0::2].astype(np.uint16) << 8) | img[:, 1::2]
     img = img.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+def load_image(path) -> np.ndarray:
+    """Read an image file with PIL, keeping its bit depth and channels:
+    16- and 32-bit gray (``I;16``, ``I;16B``, ``I``) as uint16, ``L`` as
+    uint8 (H, W), ``LA`` and ``RGBA`` as uint8 (H, W, 2) and (H, W, 4)
+    (the detector drops the alpha), any other mode (palette, bilevel,
+    CMYK, ...) converted to RGB uint8 (H, W, 3). A copy of the JAX
+    package's ``oracle/numpy_ref.py::load_image``, which its examples use."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if im.mode in ("I;16", "I;16B", "I"):
+            arr = np.array(im, dtype=np.uint16 if im.mode != "I" else np.int32)
+            return arr.astype(np.uint16) if arr.dtype == np.int32 else arr
+        if im.mode in ("L", "LA", "RGBA"):
+            return np.array(im, dtype=np.uint8)
+        return np.array(im.convert("RGB"), dtype=np.uint8)

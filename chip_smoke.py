@@ -9,7 +9,8 @@ detect with the board search on the card), the entry points that feed it
 (``detect_stream``, ``to_detector_input``, ``detect_batch_sharded``,
 ``MultiCameraDetector``, ``PipelineParallelDetector``) and the surfaces
 around it (``viz``, ``live``, the chart generator of ``boards``, the
-profiling utilities) — on the bundled
+profiling utilities, the runnable ``examples`` and the 4K rig of the
+bench) — on the bundled
 golden images at full resolution, after building every kernel from
 ``aprilgrid_tpu_torch/csrc`` and holding each against its plain PyTorch
 version on the card.
@@ -79,7 +80,7 @@ Phases (a failing phase raises, so the script exits non-zero):
    frames with its peak device memory; ``refined_saddle_points`` with
    its time per call;
 6. a line with the cluster entries' per-launch split, then one JSON line
-   with each kernel's launches in phases 3-5 and 7-10 (counted per path:
+   with each kernel's launches in phases 3-5 and 7-11 (counted per path:
    zeroed before it, read after it), its error against the plain version,
    its time, the plain version's time and its bound (and, for phase 7's
    rows, its device ms by torch.profiler); the ``hamming_scan`` row counts
@@ -148,7 +149,20 @@ Phases (a failing phase raises, so the script exits non-zero):
    size, ``/state.json`` holds the card's IDs, a ``/stream.mjpg`` chunk is
    the last frame); ``profiling.detect_stage_report`` and
    ``profiling.trace`` (CUDA kernel events) on two_boards at batch 32;
-   the per-frame ms of detect, saddles, render, PNG write and publish.
+   the per-frame ms of detect, saddles, render, PNG write and publish;
+11. (printed before 6) the runnable examples and the 4K rig, as a user
+   runs them (``phase_examples``): ``examples.demo`` in-process on the
+   four golden images, exact, ``--turbo`` and ``--mode xla`` — golden
+   counts, the exact run equal to the same example's CPU run (IDs;
+   corners, decode points and saddles within 1e-3 px, orientations within
+   1e-3 deg), turbo and xla with the exact run's IDs and corners within
+   0.1 px, each frame's ``detect_ms``; one ``python3 -m
+   aprilgrid_tpu_torch.examples.demo`` subprocess; ``examples.develop``
+   on two_boards against its CPU run; ``examples.live`` for one loop on a
+   free port; the 4K rig of ``bench --4k`` (4 cameras x 8 steps of
+   two_boards on a 3840 x 2160 canvas, exact and turbo ``"auto"``, 2
+   reps): 72 tags on every frame, parity with the CPU run of one frame,
+   frames/s.
 
 The last line is ``{"ok": true, "device": {...}}``. Run from the
 repository root: ``python3 chip_smoke.py`` (``--kernels-only`` stops after
@@ -165,7 +179,8 @@ synthetic check and ``phase_decimate_split``, for work on that kernel;
 runs phase 7, for work on the merge and the row sharding; ``--ingest-only``
 runs phase 8, for work on streaming and the multi-device detectors;
 ``--xla-only`` runs phase 9, for work on the xla mode; ``--viz-only`` runs
-phase 10, for work on the surfaces).
+phase 10, for work on the surfaces; ``--examples-only`` runs phase 11, for
+work on the examples and the 4K rig).
 """
 
 from __future__ import annotations
@@ -2346,9 +2361,9 @@ def frame_4k(u16: bool = False):
 
     from aprilgrid_tpu_torch.ops.gray import to_luma
 
-    canvas = np.full((2160, 3840, 3), 128, np.uint8)
-    canvas[540:1620, 960:2880] = read_png(DATA / "two_boards.png")
-    l8 = to_luma(torch.from_numpy(canvas).to("cuda"))[1].reshape(2160, 3840)
+    from aprilgrid_tpu_torch.bench import frame_4k as rig_frame
+
+    l8 = to_luma(torch.from_numpy(rig_frame()).to("cuda"))[1].reshape(2160, 3840)
     return (l8.to(torch.int32) * 257).to(torch.int16).view(torch.uint16) if u16 else l8
 
 
@@ -3682,6 +3697,196 @@ def phase_surfaces(card: str, batch: int) -> dict:
     return launches
 
 
+# the kernels phase 11 must launch: rows 1-6 and 8 (row 3 as decode_packed)
+# and the standalone scan (the xla demo's decode)
+EXAMPLE_KEYS = ("front_kernel", "cluster_rochade_raw", "decode_packed",
+                "front_kernel_decimate", "nms_extract_raw", "sparse_refine_raw",
+                "fused_frontend", "hamming_scan")
+DEMO_RUNS = (("exact", ()), ("turbo", ("--turbo",)), ("xla", ("--mode", "xla")))
+RIG = (4, 8, 2)   # the 4K rig: cameras, steps, timed reps
+
+
+def _printed(fn) -> tuple:
+    """``fn()``'s return value and what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn()
+    return rc, out.getvalue()
+
+
+def _demo_output(out: str) -> tuple[list, list]:
+    """A demo run's manifest lines and the frames its timeline.html embeds."""
+    with open(os.path.join(out, "manifest.jsonl")) as f:
+        manifest = [json.loads(line) for line in f]
+    with open(os.path.join(out, "timeline.html")) as f:
+        html = f.read()
+    return manifest, json.loads(re.search(r"const F=(\[.*?\]);let", html, re.S).group(1))
+
+
+def _frame_gaps(got: dict, want: dict) -> tuple[float, float, float, float]:
+    """Two timeline frames with the same tag IDs and saddle counts: the
+    largest gaps of their corners, decode points and saddle positions (px)
+    and saddle orientations (deg)."""
+    sg, sw = np.asarray(got["saddles"]), np.asarray(want["saddles"])
+    return (_tag_gap(got["tags"], want["tags"]),
+            _tag_gap(got["decode_points"], want["decode_points"]),
+            float(np.abs(sg[:, :2] - sw[:, :2]).max(initial=0.0)),
+            float(np.abs(sg[:, 2] - sw[:, 2]).max(initial=0.0)))
+
+
+def phase_examples(card: str) -> dict:
+    """Phase 11, the port's runnable examples and the 4K rig, as a user
+    runs them: (a) ``examples.demo`` in-process on a directory linking the
+    four golden images, exact, ``--turbo`` and ``--mode xla`` on the card
+    — the golden count on every frame; the exact run against the CPU run
+    of the same example (IDs equal; corners, decode points and saddles
+    within 1e-3 px; orientations within 1e-3 deg); the turbo and xla runs
+    with the exact run's IDs, corners within 0.1 px of it; (b) one
+    ``python3 -m aprilgrid_tpu_torch.examples.demo`` subprocess: exit 0,
+    golden counts in its manifest; (c) ``examples.develop`` on two_boards:
+    the CPU run's counts; (d) ``examples.live`` for one loop on a free
+    port: golden tag counts and the demo's saddle counts; (e) the 4K rig
+    through ``bench.bench_4k`` at 4 cameras x 8 steps, 2 reps, exact and
+    turbo: 72 tags on every frame, parity with the CPU run of one frame.
+    ``detect_ms`` is the demo's own measure, the wall time of ``detect``:
+    the first frame of a run includes its first-use warm-up. Returns each
+    kernel's launches in the card's runs (counted from 0 before each and
+    summed)."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from aprilgrid_tpu_torch.bench import bench_4k
+    from aprilgrid_tpu_torch.examples import demo, develop, live
+    from aprilgrid_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(LAUNCHES, 0)
+
+    def held(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in LAUNCHES:
+            launches[k] += LAUNCHES[k]
+        return out
+
+    golden = {f"{name}.png": n for name, n in GOLDEN.items()}
+    with tempfile.TemporaryDirectory() as tdir:
+        frames = os.path.join(tdir, "frames")
+        os.mkdir(frames)
+        for name in GOLDEN:
+            os.symlink(DATA / f"{name}.png", os.path.join(frames, f"{name}.png"))
+
+        def run_demo(label, *flags, device="cuda"):
+            out = os.path.join(tdir, f"demo_{label}_{device}")
+            argv = ["--dir", frames, "--out", out, "--device", device, *flags]
+            call = lambda: _printed(lambda: demo.main(argv))  # noqa: E731
+            rc, _ = held(call) if device == "cuda" else call()
+            manifest, entries = _demo_output(out)
+            counts = {m["frame"]: m["n_tags"] for m in manifest}
+            if rc != 0 or counts != golden:
+                raise AssertionError(f"demo {label} {device}: rc {rc}, counts {counts}")
+            return manifest, entries
+
+        # -- (a) the demo in-process: exact, turbo, xla on the card; exact on the CPU
+        runs = {label: run_demo(label, *flags) for label, flags in DEMO_RUNS}
+        _, cpu = run_demo("exact", device="cpu")
+        names = [m["frame"] for m in runs["exact"][0]]
+        exact = runs["exact"][1]
+        for name, e, c in zip(names, exact, cpu):
+            if set(e["tags"]) != set(c["tags"]) or len(e["saddles"]) != len(c["saddles"]):
+                raise AssertionError(f"demo exact {name}: IDs or saddle count differ from "
+                                     "the CPU run")
+            gaps = _frame_gaps(e, c)
+            if max(gaps) > 1e-3:
+                raise AssertionError(f"demo exact {name}: corner, decode point, saddle and "
+                                     f"orientation gaps {gaps} from the CPU run")
+            print(f"demo exact {name}: {len(e['tags'])} tags, {len(e['saddles'])} "
+                  f"saddles = the CPU run's (corner / decode point / saddle gap "
+                  f"{gaps[0]:.2e} / {gaps[1]:.2e} / {gaps[2]:.2e} px, orientation "
+                  f"{gaps[3]:.2e} deg) [{card}]", flush=True)
+        for label in ("turbo", "xla"):
+            for name, e, r in zip(names, exact, runs[label][1]):
+                if set(r["tags"]) != set(e["tags"]):
+                    raise AssertionError(f"demo {label} {name}: IDs differ from exact")
+                gap = _tag_gap(r["tags"], e["tags"])
+                if gap > 0.1:
+                    raise AssertionError(f"demo {label} {name}: corners {gap} px from exact")
+        for label, (manifest, _) in runs.items():
+            print(f"demo {label} detect_ms per frame (wall time of detect, the first "
+                  f"frame with its warm-up): "
+                  f"{json.dumps({m['frame']: m['detect_ms'] for m in manifest})} [{card}]",
+                  flush=True)
+
+        # -- (b) the demo as a user starts it
+        out = os.path.join(tdir, "demo_subprocess")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "aprilgrid_tpu_torch.examples.demo", "--dir", frames,
+             "--out", out], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"demo subprocess exit {proc.returncode}: {proc.stderr}")
+        manifest, _ = _demo_output(out)
+        if {m["frame"]: m["n_tags"] for m in manifest} != golden:
+            raise AssertionError(f"demo subprocess: counts {manifest}")
+        print(f"demo subprocess: exit 0, golden counts, {time.perf_counter() - t0:.1f} s; "
+              f"detect_ms {json.dumps({m['frame']: m['detect_ms'] for m in manifest})} "
+              f"[{card}]", flush=True)
+
+        # -- (c) develop on two_boards, card and CPU
+        pattern = r"refined saddles: (\d+)\nboard quads: (\d+)\ndecoded tags: (\d+)\n"
+        counts = {}
+        for device in ("cuda", "cpu"):
+            argv = [str(DATA / "two_boards.png"), "--out",
+                    os.path.join(tdir, f"develop_{device}.png"), "--device", device]
+            call = lambda: _printed(lambda: develop.main(argv))  # noqa: E731
+            rc, text = held(call) if device == "cuda" else call()
+            if rc != 0:
+                raise AssertionError(f"develop two_boards {device}: rc {rc}")
+            counts[device] = re.findall(pattern, text)
+        if counts["cuda"] != counts["cpu"] or len(counts["cuda"]) != 1 \
+                or int(counts["cuda"][0][2]) != GOLDEN["two_boards"]:
+            raise AssertionError(f"develop two_boards: {counts}")
+        print(f"develop two_boards: saddles, quads, tags {counts['cuda'][0]} = the CPU "
+              f"run's [{card}]", flush=True)
+
+        # -- (d) live, one loop on a free port
+        argv = ["--dir", frames, "--loops", "1", "--fps", "1000", "--port", "0"]
+        rc, text = held(lambda: _printed(lambda: live.main(argv)))
+        port = int(re.search(r"live viewer: http://127\.0\.0\.1:(\d+)/", text).group(1))
+        seen = {m[0]: (int(m[1]), int(m[2])) for m in re.findall(
+            r"(?m)^(\S+\.png): (\d+) tags, (\d+) saddles, \d+ ms$", text)}
+        want = {m["frame"]: (m["n_tags"], len(e["saddles"])) for m, e in zip(*runs["exact"])}
+        if rc != 0 or port <= 0 or seen != want:
+            raise AssertionError(f"live: rc {rc}, port {port}, {seen} against {want}")
+        print(f"live on port {port}: tags and saddles per frame {json.dumps(seen)} = "
+              f"golden and the demo's [{card}]", flush=True)
+
+    # -- (e) the 4K rig
+    cams, steps, reps = RIG
+    for rec in held(lambda: list(bench_4k("cuda", cams, steps, reps))):
+        if not rec["ids_equal"] or rec["corner_max_px"] > 1e-3:
+            raise AssertionError(f"4K {rec['mode']}: parity {rec['ids_equal']}, corners "
+                                 f"{rec['corner_max_px']} px from the CPU run")
+        fps = rec["frames_per_s"]
+        print(f"4K rig {rec['mode']} {cams} cams x {steps} steps, {rec['tags']} tags on "
+              f"every frame = the CPU run (corner gap {rec['corner_max_px']:.2e} px): "
+              f"{fps['median']:.1f} frames/s median of {reps} ({fps['min']:.1f}-"
+              f"{fps['max']:.1f}), chunk {rec['chunk']}, record {json.dumps(rec)} "
+              f"[{card}]", flush=True)
+
+    for k in EXAMPLE_KEYS:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the examples' path")
+    print(f"launches examples: {json.dumps({k: n for k, n in launches.items() if n})}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3721,6 +3926,9 @@ def main() -> int:
                     help="build, then only phase 10: the charts of every family, the "
                          "demo path with its overlays and timeline, the live stream "
                          "and the profiling utilities, all through the port on the card")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build, then only phase 11: the demo, develop and live "
+                         "examples and the 4K rig bench on the card")
     ap.add_argument("--turbo-only", action="store_true",
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
@@ -3761,6 +3969,9 @@ def main() -> int:
     if args.viz_only:
         phase_surfaces(card, batch=8)
         return 0
+    if args.examples_only:
+        phase_examples(card)
+        return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}
         for name in GOLDEN:
@@ -3797,8 +4008,10 @@ def main() -> int:
     for k, n in xla_launches.items():
         launches[k] = launches.get(k, 0) + n
     surface_launches = phase_surfaces(card, batch=8)
-    for k, n in surface_launches.items():
-        launches[k] = launches.get(k, 0) + n
+    example_launches = phase_examples(card)
+    for part in (surface_launches, example_launches):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
     tb = rec["two_boards"]
     csrc = "aprilgrid_tpu_torch/csrc/"
     jp = "aprilgrid_tpu/pallas/"
@@ -3853,7 +4066,8 @@ def main() -> int:
                 standalone_plain_ms=h["plain_ms"], standalone_bound_ms=h["bound"][0])
     # the standalone scan's own launches: the xla path's decode
     h = xrec["hamming"]
-    n = xla_launches["hamming_scan"] + surface_launches["hamming_scan"]
+    n = (xla_launches["hamming_scan"] + surface_launches["hamming_scan"]
+         + example_launches["hamming_scan"])
     if n <= 0:
         raise AssertionError("hamming_scan[standalone] was not launched on its path")
     kernels.append({

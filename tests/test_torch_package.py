@@ -47,7 +47,9 @@ def test_import_pulls_in_no_jax():
         "aprilgrid_tpu_torch.ops.compact, aprilgrid_tpu_torch.ops.quads, "
         "aprilgrid_tpu_torch.ops.board, aprilgrid_tpu_torch.ops.search, "
         "aprilgrid_tpu_torch.viz, aprilgrid_tpu_torch.live, aprilgrid_tpu_torch.boards, "
-        "aprilgrid_tpu_torch.boards.generator, aprilgrid_tpu_torch.boards.__main__\n"
+        "aprilgrid_tpu_torch.boards.generator, aprilgrid_tpu_torch.boards.__main__, "
+        "aprilgrid_tpu_torch.examples, aprilgrid_tpu_torch.examples.demo, "
+        "aprilgrid_tpu_torch.examples.develop, aprilgrid_tpu_torch.examples.live\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aprilgrid_tpu' or m.startswith('aprilgrid_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
