@@ -123,19 +123,10 @@ __device__ __forceinline__ int reserve_entries(int n, int* cursor, int* sh) {
 // The labels of a thread's four pixels i .. i + 3 of one row (mask bits
 // m) and the warp's four ballots of them: ballot k holds pixel k of every
 // lane. A lane's 32-column segment is its octet of lanes, pixel k of lane
-// l at bit 4 (l % 8) + k of the segment's bits.
+// l at bit 4 (l % 8) + k of the segment's bits (tile.cuh::segment_bits).
 __device__ __forceinline__ int4 row_labels(const bool (&m)[4], int i, unsigned (&bal)[4]) {
   const int lane = threadIdx.x & 31;
-  unsigned seg = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    bal[k] = __ballot_sync(FULL, m[k]);
-    unsigned x = (bal[k] >> (lane & 24)) & 0xffu;   // bit j -> bit 4 j
-    x = (x | (x << 12)) & 0x000f000fu;
-    x = (x | (x << 6)) & 0x03030303u;
-    x = (x | (x << 3)) & 0x11111111u;
-    seg |= x << k;
-  }
+  const unsigned seg = segment_bits(m, bal);
   const int pos = 4 * (lane & 7), seg0 = i - pos;
   int4 lab;
   lab.x = m[0] ? seg0 + run_start(seg, pos) : -1;

@@ -8,10 +8,14 @@
 // Here it is three launches over 64 x 64 tiles and device scratch that the
 // wrapper allocates (blur and candidate planes, a flag per tile):
 //
-//   (a) blur_resp: the tile stencil (stencil.cuh, MODE_F32) writes the
-//       blur plane and the candidate plane: the Hessian response where it
-//       is < thr at least hp2 pixels from every image edge, else BIGF; the
-//       tile's flag says whether it holds such a pixel;
+//   (a) blur_resp: the register-blocked tile passes of tile.cuh (the
+//       front and cluster kernels' staging of the f32 plane, 16 bytes a
+//       quad, and both blur passes), then the Hessian rows in
+//       response_run's layout, a thread 4 columns of 4 rows, write the blur
+//       plane and the candidate plane: the Hessian response where it is
+//       < thr at least hp2 pixels from every image edge, else BIGF, a
+//       16-byte store a row each; the tile's flag says whether it holds
+//       such a pixel;
 //   (b) gate, flagged tiles only: the ROCHADE fit in its tile form
 //       (rochade.cuh). A block stages the blur tile with its 4-pixel halo
 //       and computes the cone-smoothed plane S on 68 x 68 once for all of
@@ -33,9 +37,10 @@
 //       aligned 4x4 cell of the zero-filled cell grid.
 //
 // With the geodesic peak merge (merge = m in 1..8) (a) also writes the
-// relay mask as bits (response < thr strictly inside the image; a warp's
-// ballot is one 32-bit word of a row, bit j its column 32 k + j), and a
-// third launch takes the place of (c):
+// relay mask as bits (response < thr strictly inside the image; a row's
+// four ballots give each octet of lanes the word of its 32 columns, bit j
+// column 32 k + j, as the cluster kernel builds its segments), and a third
+// launch takes the place of (c):
 //
 //   (d) merge, flagged tiles only: a block takes its 64 x 64 tile with a
 //       MERGE_MAX-pixel halo (80 x 80), lists the region's relay pixels
@@ -71,7 +76,6 @@
 // pass costs a thread a load, a byte permute, a min and a store for each
 // of its relay pixels, about a tenth of the region on the photographs;
 // what binds (d) now is that instruction issue, then its survivors' fits.
-// The merge-free launches stay as they were.
 //
 // Row sharding (roff non-null): pixel row r is row r + roff[b] of a
 // gh-row frame; the image-edge gates hold in both, y and the label are
@@ -86,14 +90,19 @@
 // Bound on the H100: by bytes for the function as a whole (the half plane
 // in, the cell grid out), with the tile form's operations a close second.
 // (a) is the stencil family's launch, 12 bytes a pixel against 42
-// operations, and the largest of the three; (b) is bound by instruction
+// operations, and runs the front and cluster kernels' tile passes, so it
+// is bound as they are: by the latency between its barrier-separated
+// phases, not by its bytes. At two_boards b32 on an NVIDIA H100 80GB HBM3
+// at 700 W it takes 0.093 ms against a 0.068-ms bytes floor (229 MB), the
+// share of its floor that the cluster kernel's launch (a) reaches on the
+// same plane (PERF.md, section 6). (b) is bound by instruction
 // throughput — 25 cone taps a pixel of a flagged tile, each a multiply and an
 // add (--fmad=false: the taps are not fused), and ~150 taps a masked
 // pixel — in 39 KB of shared memory a block; (c) reads the candidate
 // plane once and touches the blur plane only around peaks. No launch has a
 // thread that runs a whole fit.
 #include "rochade.cuh"
-#include "stencil.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -119,55 +128,114 @@ __device__ __forceinline__ int* tile_flag(int* flags, int b, int ti, int si,
   return flags + ((size_t)b * (hp / TILE_H) + ti) * (wp / STRIP_W) + si;
 }
 
-// MASK: also write the merge's relay mask, a bit a pixel (b, hp, wp / 32).
-template <bool MASK>
-__global__ void __launch_bounds__(THREADS)
-blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
-                 Taps7 taps, const float* thr, const int* roff, int gh,
-                 float* blur, float* cand, int* flags, unsigned* relay) {
-  __shared__ TileSmem s;
-  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
-  const int c0 = si * STRIP_W;
-  blur_tile(s, half_p, b, ti, si, hp, wp, 1, MODE_F32, w, taps);
-  const float t = thr[b];
-  const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
-  const size_t fbase = (size_t)b * hp * wp;
-  bool any = false;
-  unsigned rel = 0u;   // MASK: bit k, the relay mask at the k-th pixel
-  for (int idx = threadIdx.x; idx < TILE_H * STRIP_W; idx += THREADS) {
-    int y = idx / STRIP_W, x = idx % STRIP_W;
-    int r = ti * TILE_H + y, c = c0 + x, g = r + ro;
-    size_t i = fbase + (size_t)r * wp + c;
-    blur[i] = s.lum[y + 1][x + 1];
-    float v = BIGF;
-    const bool inb = r >= hp2 && r < h - hp2 && g >= hp2 && g < gh - hp2 &&
-                     c >= hp2 && c < w - hp2;
-    // MASK: the mask asks for the response strictly inside the image, a
-    // band wider than the margin's
-    if (inb || (MASK && r > 0 && r < h - 1 && g > 0 && g < gh - 1 && c > 0 && c < w - 1)) {
-      float resp = hessian_at(s, y + 1, x + 1);
-      if (inb && resp < t) {
-        v = resp;
-        any = true;
-      }
-      if constexpr (MASK) rel |= (unsigned)(resp < t) << (idx / THREADS);
-    }
-    cand[i] = v;
-  }
-  if constexpr (MASK) {
-    // a warp's k-th pixels are 32 columns of one row, the first a multiple
-    // of 32: one word of the relay plane
-    constexpr int PIX = TILE_H * STRIP_W / THREADS;
-    const int x = (threadIdx.x & ~31) % STRIP_W, r = ti * TILE_H + threadIdx.x / STRIP_W;
-    unsigned* row = relay + ((size_t)b * hp + r) * (wp / 32) + (c0 + x) / 32;
+// The gates of a thread's 16 pixels in launch (a), for a border block:
+// bit 4 r + j says that pixel (r0 + r, c + j) lies in the margin — row in
+// [hp2, h - hp2), its frame row r0 + r + ro in [hp2, gh - hp2), column in
+// [hp2, w - hp2) — and bit 16 + 4 r + j that it lies strictly inside the
+// window and the frame (rows and columns 1 .. n - 2), the relay's band.
+__device__ __forceinline__ unsigned run_gates(int r0, int c, int h, int w, int ro, int gh,
+                                              int hp2) {
+  unsigned in = 0u;
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const unsigned bits = __ballot_sync(FULL, rel >> k & 1u);
-      if ((threadIdx.x & 31) == 0) row[(size_t)k * (THREADS / STRIP_W) * (wp / 32)] = bits;
+  for (int r = 0; r < FT_RRUN; ++r) {
+    const int y = r0 + r, g = y + ro;
+    const bool row_m = y >= hp2 && y < h - hp2 && g >= hp2 && g < gh - hp2;
+    const bool row_i = y > 0 && y < h - 1 && g > 0 && g < gh - 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool col_m = c + j >= hp2 && c + j < w - hp2;
+      const bool col_i = c + j > 0 && c + j < w - 1;
+      in |= (unsigned)(row_m && col_m) << (4 * r + j) |
+            (unsigned)(row_i && col_i) << (16 + 4 * r + j);
     }
   }
+  return in;
+}
+
+// Launch (a)'s pixels in response_run's layout (tile.cuh): the thread's
+// columns c .. c + 3 of rows r0 .. r0 + FT_RRUN - 1, from a rotating 3-row
+// window of the blurred tile. Each row's blurred pixels and candidate
+// values leave as one 16-byte store each (``blur`` and ``cand`` point at
+// pixel (r0, c)). A candidate is a pixel of the margin whose response is
+// below t; it keeps its response, every other pixel BIGF. With MASK a
+// relay pixel is one strictly inside the image whose response is below t:
+// a row's four ballots give each octet of lanes the word of its aligned
+// 32-column segment (tile.cuh::segment_bits), and the octet's first lane
+// stores it (``relay`` points at the word of (r0, c)). With BORDER ``in``
+// holds the pixels' gates (run_gates); without, every pixel of the block
+// lies in the margin and only the response is tested. Returns whether the
+// thread holds a candidate.
+template <bool MASK, bool BORDER>
+__device__ __forceinline__ bool resp_run(const FrontTileSmem& s, int q, int y0,
+                                         unsigned in, float t, int wp, float* blur,
+                                         float* cand, unsigned* relay) {
+  float up[6], mid[6], dn[6];
+  load_row6(s, y0, q, up);
+  load_row6(s, y0 + 1, q, mid);
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < FT_RRUN; ++r) {
+    load_row6(s, y0 + r + 2, q, dn);
+    float o[4];
+    bool rel[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = hessian_of(up[j], up[j + 1], up[j + 2], mid[j], mid[j + 1],
+                                 mid[j + 2], dn[j], dn[j + 1], dn[j + 2]);
+      const bool below = v < t;
+      const bool m = below && (!BORDER || (in >> (4 * r + j) & 1u));
+      o[j] = m ? v : BIGF;
+      any |= m;
+      rel[j] = below && (!BORDER || (in >> (16 + 4 * r + j) & 1u));
+    }
+    *reinterpret_cast<float4*>(cand + (size_t)r * wp) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(blur + (size_t)r * wp) =
+        make_float4(mid[1], mid[2], mid[3], mid[4]);
+    if constexpr (MASK) {
+      unsigned bal[4];
+      const unsigned word = segment_bits(rel, bal);
+      if ((threadIdx.x & 7) == 0) relay[(size_t)r * (wp / 32)] = word;
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) up[j] = mid[j], mid[j] = dn[j];
+  }
+  return any;
+}
+
+// Launch (a): a block is a (frame, 64-row tile, 64-column strip), staged
+// from the f32 half plane with 16-byte quads (per element where a quad
+// leaves the plane's columns or the plane is unaligned), blurred by the
+// register-blocked passes of tile.cuh, then resp_run; the tile's flag says
+// whether it holds a candidate. MASK: also the merge's relay mask, a bit a
+// pixel (b, hp, wp / 32).
+template <bool MASK>
+__global__ void __launch_bounds__(THREADS, FT_BLOCKS)
+blur_resp_kernel(const float* half_p, int hp, int wp, int h, int w, int hp2,
+                 bool aligned, Taps7 taps, const float* thr, const int* roff, int gh,
+                 float* blur, float* cand, int* flags, unsigned* relay) {
+  __shared__ __align__(16) FrontTileSmem s;
+  const int si = blockIdx.x, ti = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  stage_quads<RAW_F32, false>(s, half_p, b, ti, si, hp, wp, w, aligned, nullptr);
+  blur_tile_passes(s, taps);
+  const int q = tid % (STRIP_W / 4), y0 = (tid / (STRIP_W / 4)) * FT_RRUN;
+  const int r0 = ti * TILE_H + y0, c = si * STRIP_W + 4 * q;
+  const size_t i0 = ((size_t)b * hp + r0) * wp + c;
+  unsigned* words = MASK ? relay + ((size_t)b * hp + r0) * (wp / 32) + c / 32 : nullptr;
+  const int ro = roff != nullptr ? roff[b] : 0;   // gh == h without roff
+  const float t = thr[b];
+  // a block all of whose pixels lie hp2 or more from every edge of the
+  // window, in a frame that is no window of a taller one, tests the
+  // response alone (hp2 >= 1: the relay's band is wider than the margin)
+  const bool border = ti * TILE_H < hp2 || (ti + 1) * TILE_H > h - hp2 ||
+                      si * STRIP_W < hp2 || (si + 1) * STRIP_W > w - hp2 || ro != 0 ||
+                      gh != h;
+  const bool any =
+      border ? resp_run<MASK, true>(s, q, y0, run_gates(r0, c, h, w, ro, gh, hp2), t, wp,
+                                    blur + i0, cand + i0, words)
+             : resp_run<MASK, false>(s, q, y0, 0u, t, wp, blur + i0, cand + i0, words);
   const int some = __syncthreads_or(any);
-  if (threadIdx.x == 0) *tile_flag(flags, b, ti, si, hp, wp) = some;
+  if (tid == 0) *tile_flag(flags, b, ti, si, hp, wp) = some;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -494,13 +562,15 @@ extern "C" int ag_nms_extract_raw(const void* half_p, int b, int hp, int wp,
   if (half_p != nullptr) {
     Taps7 taps;
     for (int k = 0; k < 7; ++k) taps.k[k] = taps7[k];
+    // the staging's 16-byte quads; rows start 256-byte aligned
+    const bool aligned = (uintptr_t)half_p % 16 == 0;
     if (merge > 0)
       blur_resp_kernel<true><<<tgrid, THREADS, 0, st>>>(
-          (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+          (const float*)half_p, hp, wp, h, w, hp2, aligned, taps, (const float*)thr, ro,
           gh, (float*)blur, (float*)cand, (int*)flags, (unsigned*)relay);
     else
       blur_resp_kernel<false><<<tgrid, THREADS, 0, st>>>(
-          (const float*)half_p, hp, wp, h, w, hp2, taps, (const float*)thr, ro,
+          (const float*)half_p, hp, wp, h, w, hp2, aligned, taps, (const float*)thr, ro,
           gh, (float*)blur, (float*)cand, (int*)flags, nullptr);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

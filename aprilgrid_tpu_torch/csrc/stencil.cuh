@@ -1,6 +1,7 @@
-// Shared tile stencil of the front and cluster kernels: padded raw frame
-// -> f32 luma -> 7-tap separable Gaussian blur -> 3x3 Hessian response,
-// for one (frame, 64-row tile, 64-column strip) block.
+// The tile stencil in its first version, and the numerics that every
+// stencil kernel shares: padded raw frame -> f32 luma -> 7-tap separable
+// Gaussian blur -> 3x3 Hessian response, for one (frame, 64-row tile,
+// 64-column strip) block.
 //
 // Numerics follow the JAX package's ops/gray.py and ops/frontend.py op for
 // op, each op rounded on its own: IEEE divides for the gray scales, every
@@ -14,11 +15,12 @@
 // reciprocals; it agrees with the op-by-op values to ~1e-9 in the
 // response, the tolerance its own tests use.)
 //
-// A frame may also arrive as an f32 luma plane in the same padded layout
-// (MODE_F32: the turbo path's half-resolution plane); the stencil then
-// reads the values as they are. blur_tile_plane is the same stencil fed
-// from a bare f32 plane without margins (the plane path's fused_frontend):
-// rows and columns are clamped to the plane as given.
+// Its one user is frontend.cu's fused_kernel (the plane path's
+// fused_frontend): blur_tile_plane stages a bare f32 plane without margins,
+// rows and columns clamped to the plane as given, then blur_passes and
+// hessian_at. The front, cluster and NMS kernels run tile.cuh's
+// register-blocked passes on the same values in the same op order, and
+// take luma_f32 / luma_u8 and hessian_of from here.
 //
 // Layout: the padded raw frame (pad_raw) has hp + 16 rows (8 edge rows
 // above the image, >= 8 below) of wp * channels elements. Tile i covers
@@ -128,30 +130,11 @@ __device__ __forceinline__ void blur_passes(TileSmem& s, const Taps7& taps) {
 }
 
 // Fills s.lum (as the blurred tile, [BROWS][TCOLS] in the top-left corner
-// of the array) for block (frame b, tile ti, strip si). Entry (y, x) of the
-// result is the blur at image row 64 ti - 1 + y, column 64 si - 1 + x.
-__device__ __forceinline__ void blur_tile(TileSmem& s, const void* raw,
-                                          int b, int ti, int si, int hp,
-                                          int wp, int channels, int mode,
-                                          int w, const Taps7& taps) {
-  const int tid = threadIdx.x;
-  const int c0 = si * STRIP_W;
-  const size_t row_elems = (size_t)wp * channels;
-  const size_t frame_elems = (size_t)(hp + 16) * row_elems;
-  // padded row of luma row y: 64 ti + 4 + y (y in [0, LROWS))
-  const int pr0 = ti * TILE_H + 4;
-  for (int idx = tid; idx < LROWS * LCOLS; idx += THREADS) {
-    int y = idx / LCOLS, x = idx % LCOLS;
-    int c = min(max(c0 - HALO + x, 0), w - 1);
-    size_t off = (size_t)b * frame_elems + (size_t)(pr0 + y) * row_elems;
-    s.lum[y][x] = luma_f32(raw, off, c, channels, mode);
-  }
-  blur_passes(s, taps);
-}
-
-// The same blurred tile from a bare (frames, hin, win) f32 luma plane: no
-// margin rows, so rows as well as columns are clamped to the plane (its
-// edge values replicated, the reference's clamped-border blur).
+// of the array) for block (frame b, tile ti, strip si) of a bare (frames,
+// hin, win) f32 luma plane: entry (y, x) is the blur at row 64 ti - 1 + y,
+// column 64 si - 1 + x. No margin rows, so rows as well as columns are
+// clamped to the plane (its edge values replicated, the reference's
+// clamped-border blur).
 __device__ __forceinline__ void blur_tile_plane(TileSmem& s,
                                                 const float* plane, int b,
                                                 int ti, int si, int hin,

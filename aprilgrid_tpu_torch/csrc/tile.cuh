@@ -1,11 +1,12 @@
-// The register-blocked tile passes of the front and cluster kernels:
+// The register-blocked tile passes of the front, cluster and NMS kernels:
 // padded raw frame (or f32 luma plane) -> staged f32 luma -> 7-tap
 // separable Gaussian blur -> 3x3 Hessian response, for one (frame, 64-row
 // tile, 64-column strip) block of 256 threads. frontend.cu's
-// front_tile_kernel and front_decimate_kernel and cluster.cu's
-// blur_mask_kernel run these passes; the values and their op order are
-// stencil.cuh's (its head gives the numerics), only the number of
-// instructions each value passes through differs.
+// front_tile_kernel and front_decimate_kernel, cluster.cu's
+// blur_mask_kernel and nms.cu's blur_resp_kernel run these passes; the
+// values and their op order are stencil.cuh's (its head gives the
+// numerics), only the number of instructions each value passes through
+// differs.
 #pragma once
 
 #include <type_traits>
@@ -14,14 +15,14 @@
 
 namespace ag {
 
-// The block and the values in their op order are those of stencil.cuh's
-// blur_tile and hessian_at (the first version of these kernels); what
-// changes is how often each value passes through an instruction (the cost
-// of each: frontend.cu's head). Rows of the staged luma and
-// of the horizontal pass are an odd number of 16-byte words apart, so
-// eight lanes on eight consecutive rows (the horizontal pass) or on eight
-// consecutive words of one row (every other pass) hit distinct banks with
-// their 16-byte accesses. 44,832 B of shared memory and at most 48
+// The block and the values in their op order are those of the first
+// version of these kernels (stencil.cuh's blur_passes and hessian_at,
+// which fused_kernel still runs); what changes is how often each value
+// passes through an instruction (the cost of each: frontend.cu's head).
+// Rows of the staged luma and of the horizontal pass are an odd number of
+// 16-byte words apart, so eight lanes on eight consecutive rows (the
+// horizontal pass) or on eight consecutive words of one row (every other
+// pass) hit distinct banks with their 16-byte accesses. 44,832 B of shared memory and at most 48
 // registers a thread let five blocks share an SM.
 constexpr int FT_LSTR = 76;      // staged luma: 72 columns (+4)
 constexpr int FT_TSTR = 76;      // horizontal outputs: 68 columns (+8)
@@ -48,7 +49,8 @@ struct FrontTileSmem {
 
 // The input modes of the staging, one loop each: the raw modes of
 // ag_front_kernel and an f32 luma plane in pad_half's layout (the turbo
-// path's half plane, which cluster.cu's blur_mask_kernel reads).
+// path's half plane, which cluster.cu's blur_mask_kernel and nms.cu's
+// blur_resp_kernel read).
 constexpr int RAW_GRAY8 = 0, RAW_GRAY16 = 1, RAW_RGB8 = 2, RAW_F32 = 3;
 
 // u8 luma of an RGB pixel (image crate to_luma8), as luma_u8.
@@ -316,6 +318,26 @@ __device__ __forceinline__ float response_run(const FrontTileSmem& s, int q,
     for (int j = 0; j < 6; ++j) up[j] = mid[j], mid[j] = dn[j];
   }
   return m;
+}
+
+// A row step of the Hessian pass as bits: ballot k of the warp (``bal``)
+// holds pixel k of every lane (``m``: the lane's four pixels, columns
+// 4 (l % 16) .. + 3 of lane l's row group); the result is the 32 bits of
+// the aligned 32-column segment of the lane's octet, pixel k of lane l at
+// bit 4 (l % 8) + k. Every lane of the warp calls it.
+__device__ __forceinline__ unsigned segment_bits(const bool (&m)[4], unsigned (&bal)[4]) {
+  const int lane = threadIdx.x & 31;
+  unsigned seg = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bal[k] = __ballot_sync(0xffffffffu, m[k]);
+    unsigned x = (bal[k] >> (lane & 24)) & 0xffu;   // bit j -> bit 4 j
+    x = (x | (x << 12)) & 0x000f000fu;
+    x = (x | (x << 6)) & 0x03030303u;
+    x = (x | (x << 3)) & 0x11111111u;
+    seg |= x << k;
+  }
+  return seg;
 }
 
 // Both blur passes on the block's staged 72 x 72 luma, between barriers:

@@ -4,10 +4,10 @@ extraction at half resolution.
 ``nms_extract_raw`` replaces the JAX package's
 ``pallas/nms.py::nms_extract_raw``. On a CUDA tensor it launches
 ``csrc/nms.cu``, three launches over 64 x 64 tiles behind one wrapper: the
-blur stencil with the masked response and a flag per tile (the largest of
-the three, bound like the other stencil kernels); the record gate on the
-flagged tiles, where the ROCHADE fit's cone smoothing is one stencil of the
-whole tile that its masked pixels share
+blur and the masked response on the front and cluster kernels' tile passes
+(``csrc/tile.cuh``) with a flag per tile, bound as those kernels are; the
+record gate on the flagged tiles, where the ROCHADE fit's cone smoothing is
+one stencil of the whole tile that its masked pixels share
 (``ops/rochade.py::record_planes`` states the premise in PyTorch), bound by
 instruction throughput; the peaks, a warp's fit each, into the cell grid.
 With the peak merge (``merge`` > 0) the first launch also writes the relay
@@ -133,9 +133,13 @@ def _row_offsets(b: int, row_off, dev) -> torch.Tensor:
     return row_off.to(device=dev, dtype=torch.int64)
 
 
-def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0,
-                          merge=0, row_off=None, global_h=None):
-    """Plain PyTorch version of ``nms_extract_raw``."""
+def nms_planes_plain(half_p, thr, h, w, sigma=1.5, hp2=4, row_off=None, global_h=None):
+    """Steps 1 and 2's planes before the fit, (B, h, w) each: the blur, its
+    Hessian response, ``mask`` (response < thr strictly inside the window
+    and the frame: the merge's relay mask) and the margin (at least hp2
+    pixels inside both). The kernel's first launch stores the blur, the
+    response where mask and margin hold (else ``_BIGF``) and, with the
+    merge, the mask as bits."""
     b = half_p.shape[0]
     dev = half_p.device
     # the blur of the padded plane: its margins are the frame's replicated
@@ -149,7 +153,17 @@ def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0,
     inner = (r > 0) & (r < h - 1) & (g > 0) & (g < gh - 1) & (c > 0) & (c < w - 1)
     inb = ((r >= hp2) & (r < h - hp2) & (g >= hp2) & (g < gh - hp2)
            & (c >= hp2) & (c < w - hp2))
-    mask = inner & (resp < thr[:, None, None])
+    return blur, resp, inner & (resp < thr[:, None, None]), inb
+
+
+def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0,
+                          merge=0, row_off=None, global_h=None):
+    """Plain PyTorch version of ``nms_extract_raw``."""
+    b = half_p.shape[0]
+    dev = half_p.device
+    blur, resp, mask, inb = nms_planes_plain(half_p, thr, h, w, sigma, hp2, row_off,
+                                             global_h)
+    ro = _row_offsets(b, row_off, dev)   # frame row of window row r: r + ro
     cand_resp = torch.full_like(resp, _BIGF)
     rec = torch.zeros((b, 5, h, w), dtype=torch.float32, device=dev)
     for i in range(b):
@@ -160,7 +174,7 @@ def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0,
         ys, xs = ys[ok], xs[ok]
         cand_resp[i, ys, xs] = resp[i, ys, xs]
         rec[i][:, ys, xs] = torch.stack(
-            [xs.to(torch.float32) + x0[ok], g[i, ys, 0].to(torch.float32) + y0[ok],
+            [xs.to(torch.float32) + x0[ok], (ys + ro[i]).to(torch.float32) + y0[ok],
              c3[ok], c4[ok], c5[ok]]
         )
     peaks = nms_peaks_plain(cand_resp)
@@ -172,7 +186,7 @@ def nms_extract_raw_plain(half_p, thr, h, w, sigma=1.5, hp2=4, move_thr=1.0,
     )
     bi, ys, xs = torch.nonzero(peaks, as_tuple=True)
     cells[bi, :5, ys // _CELL, xs // _CELL] = rec[bi, :, ys, xs]
-    cells[bi, 5, ys // _CELL, xs // _CELL] = (g[bi, ys, 0] * w + xs + 1).to(torch.float32)
+    cells[bi, 5, ys // _CELL, xs // _CELL] = ((ys + ro[bi]) * w + xs + 1).to(torch.float32)
     return cells
 
 

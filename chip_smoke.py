@@ -31,8 +31,10 @@ Phases (a failing phase raises, so the script exits non-zero):
    NMS extraction, sparse refine) on iphone and two_boards at batch 32
    and on EuRoC and TUM_VI at batch 8, the NMS tie-break on a plane
    with planted equal responses, the NMS kernel on synthetic planes (a
-   fit at every pixel, none, blobs across tile corners and the margin, a
-   shape that is no multiple of its tile) and the refine kernel on slot
+   fit at every pixel, none, blobs across tile corners and the margin, two
+   shapes that are no multiple of its tile, one ending 2 pixels past its
+   last tile and strip; at m0 and m8, on the plane and on a copy one
+   element off alignment) and the refine kernel on slot
    sets no frame produces (every slot valid, none, valid slots that are
    no prefix, centres on the rounding's ties, negative and outside the
    image) on u8, u16 and RGB frames; the front kernel in both modes and
@@ -180,7 +182,10 @@ runs phase 7, for work on the merge and the row sharding; ``--ingest-only``
 runs phase 8, for work on streaming and the multi-device detectors;
 ``--xla-only`` runs phase 9, for work on the xla mode; ``--viz-only`` runs
 phase 10, for work on the surfaces; ``--examples-only`` runs phase 11, for
-work on the examples and the 4K rig).
+work on the examples and the 4K rig; ``--split-only`` runs
+``phase_launch_split``, the per-launch split of the NMS at m0 and m8 and of
+the kernels that share its tile passes, for comparing a change with its
+parent in one call: copy the script into an unpacked parent and run both).
 """
 
 from __future__ import annotations
@@ -1015,6 +1020,50 @@ def phase_turbo_split(card: str, batch: int) -> dict:
     return split
 
 
+def phase_launch_split(card: str, batch: int) -> dict:
+    """Device ms of each launch of ``nms_extract_raw`` at m0 and m8 and of
+    the kernels that run the tile passes of ``csrc/tile.cuh`` with it (the
+    front kernel, the decimating front kernel, the cluster kernel's raw and
+    f32-luma entries) on two_boards at ``batch``, fed as their paths feed
+    them: torch.profiler, mean of 10 calls, the wrappers' own PyTorch
+    operations left out; the event ms of the NMS at m0 and m8; what ptxas
+    reported for the kernels of ``nms.cu``, ``cluster.cu`` and
+    ``frontend.cu``. Copied into a parent's tree and run there too, it
+    compares two versions of these kernels within one call."""
+    import torch
+
+    from aprilgrid_tpu_torch.config import CONSTANTS
+    from aprilgrid_tpu_torch.kernels.cluster import cluster_rochade_raw
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel, front_kernel_decimate, pad_raw
+    from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw
+
+    sigma, ratio = CONSTANTS.blur_sigma, CONSTANTS.response_threshold_ratio
+    for source in ("nms.cu", "cluster.cu", "frontend.cu"):
+        _print_ptxas(source)
+    img = torch.from_numpy(read_png(DATA / "two_boards.png")).cuda()
+    frames = img[None].expand(batch, *img.shape).contiguous()
+    nargs = turbo_chain(frames)["nargs"]
+    half_p, hthr, hh, wh = nargs[:4]
+    raw_p, h, w, ch, u16 = pad_raw(frames)
+    thr = front_kernel(raw_p, sigma, (h, w), ch, u16)[1].amin(-1) * ratio
+    calls = {
+        "nms_extract_raw": lambda: nms_extract_raw(*nargs),
+        "nms_extract_raw[m8]": lambda: nms_extract_raw(*nargs, merge=8),
+        "front_kernel": lambda: front_kernel(raw_p, sigma, (h, w), ch, u16),
+        "front_kernel_decimate": lambda: front_kernel_decimate(raw_p, sigma, (h, w), ch, u16),
+        "cluster_rochade_raw": lambda: cluster_rochade_raw(raw_p, thr, h, w, ch, u16, sigma),
+        "cluster_rochade_raw[luma_f32]": lambda: cluster_rochade_raw(
+            half_p, hthr, hh, wh, 1, False, sigma, 4, 1.0, True),
+    }
+    split = {k: {n: ms for n, ms in v.items() if n != "at::"}
+             for k, v in _profile_split(calls).items()}
+    for name in ("nms_extract_raw", "nms_extract_raw[m8]"):
+        split[name]["event_ms"] = _ms(calls[name], 20)
+    print(f"launch split two_boards b{batch}, device ms per launch [{card}]: "
+          f"{json.dumps(split)}", flush=True)
+    return split
+
+
 # (h, w) of the front kernel's synthetic frames: widths that are no
 # multiple of its 64-column strip or of the 128-column padding, heights
 # that are no multiple of its 64-row tile but one, a frame narrower than
@@ -1713,7 +1762,12 @@ def nms_synthetic_check() -> None:
     blur flattens the checkerboard to the same), long blobs and irregular
     ones that straddle tile corners and the 4-pixel margin (spiral, comb,
     noise), a true saddle every 8 pixels, on the tile corners too
-    (lattice). The cell grids must be bit-equal."""
+    (lattice); and at 194 x 322, whose last tile and strip end 2 pixels
+    past the plane, so that their rows and columns of the margin's far
+    edge lie inside the tile. Each at m0 and m8 (the merge's launch (a)
+    writes the relay bits), on the ``pad_half`` plane and on a copy one
+    element off alignment (launch (a) stages it element by element). The
+    cell grids must be bit-equal."""
     import torch
 
     from aprilgrid_tpu_torch.config import CONSTANTS
@@ -1721,30 +1775,39 @@ def nms_synthetic_check() -> None:
     from aprilgrid_tpu_torch.kernels.nms import nms_extract_raw, nms_extract_raw_plain
     from aprilgrid_tpu_torch.ops.frontend import gaussian_blur, hessian_response
 
-    names, planes, thr = synthetic_blur_planes()
-    planes, thr = torch.from_numpy(planes).cuda(), torch.from_numpy(thr).cuda()
-    b, h, w = planes.shape
-    half_p = pad_half(planes)
-    # lower shares than the cluster check's: wide blobs, a fit at each pixel
-    rthr = synthetic_luma_thresholds(names, half_p, thr, h, w, spiral=0.002,
-                                     comb=0.002, noise=0.01)
-    cells = nms_extract_raw(half_p, rthr, h, w)
-    pcells = nms_extract_raw_plain(half_p, rthr, h, w)
-    torch.cuda.synchronize()
-    peaks = (cells[:, 5] > 0.5).sum((1, 2)).tolist()
-    ppeaks = (pcells[:, 5] > 0.5).sum((1, 2)).tolist()
-    if not torch.equal(cells, pcells):
-        raise AssertionError(
-            f"nms_extract_raw synthetic: peaks {dict(zip(names, peaks))} vs plain "
-            f"{dict(zip(names, ppeaks))}, max |diff| {(cells - pcells).abs().max().item()}")
-    resp = hessian_response(gaussian_blur(planes, CONSTANTS.blur_sigma))
-    fits = (resp < rthr[:, None, None])[:, 4:-4, 4:-4].sum((1, 2)).tolist()
-    got = dict(zip(names, zip(fits, peaks)))
-    if (got["whole"][0] != (h - 8) * (w - 8) or got["empty"] != (0, 0)
-            or min(got[n][1] for n in ("spiral", "comb", "lattice", "noise")) <= 0):
-        raise AssertionError(f"nms_extract_raw synthetic: (fits, peaks) {got}")
-    print(f"kernels nms_extract_raw synthetic {h}x{w} b{b}: cell grids bit-equal; "
-          + ", ".join(f"{n} {f} fits/{p} peaks" for n, (f, p) in got.items()), flush=True)
+    for h, w in ((250, 380), (194, 322)):
+        names, planes, thr = synthetic_blur_planes(h, w)
+        planes, thr = torch.from_numpy(planes).cuda(), torch.from_numpy(thr).cuda()
+        b = planes.shape[0]
+        half_p = pad_half(planes)
+        # lower shares than the cluster check's: wide blobs, a fit at each pixel
+        rthr = synthetic_luma_thresholds(names, half_p, thr, h, w, spiral=0.002,
+                                         comb=0.002, noise=0.01)
+        peaks = {}
+        for merge in (0, 8):
+            for label, plane in (("aligned", half_p), ("misaligned", _misaligned(half_p))):
+                cells = nms_extract_raw(plane, rthr, h, w, merge=merge)
+                pcells = nms_extract_raw_plain(plane, rthr, h, w, merge=merge)
+                torch.cuda.synchronize()
+                peaks[merge] = (cells[:, 5] > 0.5).sum((1, 2)).tolist()
+                if not torch.equal(cells, pcells):
+                    ppeaks = (pcells[:, 5] > 0.5).sum((1, 2)).tolist()
+                    raise AssertionError(
+                        f"nms_extract_raw synthetic {h}x{w} m{merge} {label}: peaks "
+                        f"{dict(zip(names, peaks[merge]))} vs plain "
+                        f"{dict(zip(names, ppeaks))}, max |diff| "
+                        f"{(cells - pcells).abs().max().item()}")
+        resp = hessian_response(gaussian_blur(planes, CONSTANTS.blur_sigma))
+        fits = (resp < rthr[:, None, None])[:, 4:-4, 4:-4].sum((1, 2)).tolist()
+        got = dict(zip(names, zip(fits, peaks[0], peaks[8])))
+        if (got["whole"][0] != (h - 8) * (w - 8) or got["empty"] != (0, 0, 0)
+                or min(got[n][1] for n in ("spiral", "comb", "lattice", "noise")) <= 0):
+            raise AssertionError(f"nms_extract_raw synthetic {h}x{w}: (fits, peaks m0, "
+                                 f"m8) {got}")
+        print(f"kernels nms_extract_raw synthetic {h}x{w} b{b}: cell grids bit-equal at m0 "
+              "and m8, aligned and misaligned; " + ", ".join(
+                  f"{n} {f} fits/{p0} peaks m0/{p8} m8" for n, (f, p0, p8) in got.items()),
+              flush=True)
 
 
 def refine_slot_sets(c0: np.ndarray, v0: np.ndarray, h: int, w: int, seed: int = 0):
@@ -3933,6 +3996,10 @@ def main() -> int:
                     help="build, then only the turbo path's kernel checks (all four "
                          "images, the NMS and refine synthetic cases) and the "
                          "per-launch split of nms_extract_raw and sparse_refine_raw")
+    ap.add_argument("--split-only", action="store_true",
+                    help="build, then only the per-launch split of the NMS at m0 and m8 "
+                         "and of the kernels that share its tile passes, with ptxas "
+                         "(run from a parent's tree too, to compare two versions)")
     args = ap.parse_args()
     import torch
 
@@ -3971,6 +4038,9 @@ def main() -> int:
         return 0
     if args.examples_only:
         phase_examples(card)
+        return 0
+    if args.split_only:
+        phase_launch_split(card, batch=32)
         return 0
     if args.turbo_only:
         rec: dict = {n: {} for n in GOLDEN}

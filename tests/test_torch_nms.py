@@ -508,3 +508,133 @@ def test_merge_block_model_equals_plain(data_dir, one_thread, case):
         want = {"reach8": [7] * 7 + [3], "corner": [4] * 7 + [2],
                 "ring": [4] * 6 + [2, 2], "edge": [8] * 4 + [7, 6, 5, 4]}[case]
         assert left == want
+
+
+# -- launch (a) of the kernel (csrc/nms.cu::blur_resp_kernel) as a numpy walk
+#
+# The kernel's blocks stage the f32 half plane and blur it as the front and
+# cluster kernels' blocks do (the passes of csrc/tile.cuh, modelled in
+# tile_model.py), then walk the Hessian rows in the same thread layout: the
+# response where it is below thr inside the margin (the window's rows, the
+# frame's rows, the columns), else BIGF, the tests only in border blocks;
+# the relay bits from a warp's four ballots a row step, interleaved per
+# octet of lanes into the word of its 32 columns; the tile's flag. The
+# model's planes must be the plain version's.
+
+
+def _blur_resp_model(half_p, h, w, thr, hp2=4, ro=None, gh=None, aligned=True):
+    """(blur (B, Hp, Wp), cand (B, Hp, Wp), relay words (B, Hp, Wp / 32),
+    flags (B, Hp / 64, Wp / 64)) as launch (a)'s blocks compute them from a
+    ``pad_half`` plane (B, Hp + 16, Wp) f32."""
+    from aprilgrid_tpu_torch.ops.frontend import gaussian_kernel
+    from tile_model import RRUN, T, hessian_rows, stage_model, stencil_model
+
+    lum, _ = stage_model(half_p, 1, False, w, aligned)
+    b, n_t, n_s = lum.shape[:3]
+    hp = n_t * T
+    blurred, _ = stencil_model(lum, (h, w), gaussian_kernel(1.5))
+    v = hessian_rows(blurred)                                     # (B, T, S, 64, 64)
+
+    ro = np.zeros(b, np.int64) if ro is None else np.asarray(ro, np.int64)
+    gh = h if gh is None else gh
+    rr = (T * np.arange(n_t)[:, None] + np.arange(T))[None, :, None, :, None]
+    cc = (T * np.arange(n_s)[:, None] + np.arange(T))[None, None, :, None, :]
+    g = rr + ro[:, None, None, None, None]
+    margin = ((rr >= hp2) & (rr < h - hp2) & (g >= hp2) & (g < gh - hp2)
+              & (cc >= hp2) & (cc < w - hp2))
+    inner = (rr > 0) & (rr < h - 1) & (g > 0) & (g < gh - 1) & (cc > 0) & (cc < w - 1)
+    # a block that holds no pixel outside the margin, in a frame that is no
+    # window of a taller one, tests the response alone
+    ti, si = np.arange(n_t)[:, None], np.arange(n_s)[None, :]
+    border = (((ti * T < hp2) | ((ti + 1) * T > h - hp2) | (si * T < hp2)
+               | ((si + 1) * T > w - hp2))[None]
+              | (ro != 0)[:, None, None] | (gh != h))[..., None, None]   # (B, T, S, 1, 1)
+    assert (margin | border).all()
+    below = v < np.asarray(thr, np.float32)[:, None, None, None, None]
+    m = np.where(border, margin & below, below)
+    rel = np.where(border, inner & below, below)
+
+    # warp k, lane l = 16 half + q: rows 8k + 4 half + r, columns 4q + j;
+    # ballot (r, j) holds pixel j of row step r of every lane, and lane l's
+    # octet word has pixel j of lane l at bit 4 (l % 8) + j
+    mw = rel.reshape(b, n_t, n_s, 8, 2, RRUN, 16, 4).transpose(0, 1, 2, 3, 5, 7, 4, 6)
+    mw = mw.reshape(b, n_t, n_s, 8, RRUN, 4, 32)
+    lane = np.arange(32, dtype=np.uint64)
+    bal = (mw.astype(np.uint64) << lane).sum(-1)                  # (..., r, j)
+    x = (bal[..., None] >> (lane & np.uint64(24))) & np.uint64(0xFF)  # (..., r, j, lane)
+    for shift, keep in ((12, 0x000F000F), (6, 0x03030303), (3, 0x11111111)):
+        x = (x | (x << np.uint64(shift))) & np.uint64(keep)
+    seg = np.bitwise_or.reduce(x << np.arange(4, dtype=np.uint64)[:, None], axis=-2)
+    # the first lane of each octet stores its word: lanes 0 and 8 the two
+    # words of row group 0's rows, lanes 16 and 24 those of row group 1
+    words = seg[..., ::8].reshape(b, n_t, n_s, 8, RRUN, 2, 2).transpose(0, 1, 2, 3, 5, 4, 6)
+    words = words.reshape(b, n_t, n_s, T, 2)
+
+    def plane(a):
+        return a.transpose(0, 1, 3, 2, 4).reshape(b, hp, -1)
+
+    cand = np.where(m, v, np.float32(_BIGF))
+    return (plane(blurred[..., 1:65, 1:65]), plane(cand), plane(words).astype(np.uint32),
+            m.any((-2, -1)))
+
+
+def _blur_resp_case(data_dir, case):
+    """(half_p, h, w, row_off, global_h) of a case of the model test."""
+    import chip_smoke
+    from aprilgrid_tpu_torch.kernels.frontend import front_kernel_decimate_plain
+
+    if case == "synthetic":
+        _, planes, _ = chip_smoke.synthetic_blur_planes()
+        return pad_half(torch.from_numpy(planes)), *planes.shape[1:], None, None
+    if case == "row_off":
+        from aprilgrid_tpu_torch.parallel.sharding import row_windows
+
+        img = load_image(str(data_dir / "EuRoC.png"))[:, :384]
+        wins, roff, local_h, gh = row_windows(torch.from_numpy(img), 2, turbo=True)
+        _, half_p, _ = front_kernel_decimate_plain(wins, 1.5, (local_h, 384), 1, False,
+                                                   row_off=roff, global_h=gh)
+        assert roff[0] < 0 < roff[1]
+        return half_p, local_h // 2, 192, roff, gh
+    # two_boards: a crop whose half plane ends 2 rows and 2 columns past a
+    # multiple of 64, so that the last tile and strip hold margin pixels
+    crop = {"EuRoC": (480, 752), "two_boards": (388, 644)}[case]
+    img = load_image(str(data_dir / f"{case}.png"))[: crop[0], : crop[1]]
+    raw, _, _, ch, u16 = pad_raw(torch.from_numpy(np.ascontiguousarray(img))[None])
+    _, half_p, _ = front_kernel_decimate_plain(raw, 1.5, crop, ch, u16)
+    return half_p, crop[0] // 2, crop[1] // 2, None, None
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["m0", "merge"])
+@pytest.mark.parametrize("case", ["EuRoC", "two_boards", "synthetic", "row_off"])
+def test_blur_resp_model_equals_plain(data_dir, one_thread, case, mask):
+    """Launch (a)'s block walk (``_blur_resp_model``) equals the plain
+    version's planes before the fit (``nms_planes_plain``) bit for bit: the
+    blur, the candidate plane (the response where it is below thr in the
+    margin, else BIGF), the tiles' flags and, for the merge's launch
+    (``mask``), the relay words; on EuRoC's half plane, a two_boards crop's,
+    the smoke's synthetic planes (250 x 380, also staged as from an
+    unaligned pointer) and the half-plane windows of a frame cut into two
+    bands. The threshold masks about a quarter of each plane's pixels."""
+    from aprilgrid_tpu_torch.kernels.nms import nms_planes_plain
+
+    half_p, h, w, roff, gh = _blur_resp_case(data_dir, case)
+    bsz, hp, wp = half_p.shape[0], half_p.shape[1] - 16, half_p.shape[2]
+    resp = nms_planes_plain(half_p, torch.zeros(bsz), h, w, 1.5, 4, roff, gh)[1]
+    thr = torch.stack([torch.quantile(r[1:-1, 1:-1], 0.25) for r in resp])
+    blur, resp, relay, margin = nms_planes_plain(half_p, thr, h, w, 1.5, 4, roff, gh)
+    want = np.full((bsz, hp, wp), np.float32(_BIGF))
+    want[:, :h, :w] = torch.where(relay & margin, resp, _BIGF).numpy()
+    assert 0.05 < (want < _BIGF).sum() / (bsz * h * w) < 0.3
+    bits = np.zeros((bsz, hp, wp), np.uint64)
+    bits[:, :h, :w] = relay.numpy()
+    words = (bits.reshape(bsz, hp, wp // 32, 32) << np.arange(32, dtype=np.uint64)).sum(-1)
+    flags = (want < _BIGF).reshape(bsz, hp // 64, 64, wp // 64, 64).any((2, 4))
+    ro = None if roff is None else roff.tolist()
+    for aligned in (True, False) if case == "synthetic" else (True,):
+        mblur, mcand, mwords, mflags = _blur_resp_model(half_p.numpy(), h, w, thr.numpy(),
+                                                        4, ro, gh, aligned)
+        np.testing.assert_array_equal(mblur[:, :h, :w], blur.numpy())
+        np.testing.assert_array_equal(mcand, want)
+        np.testing.assert_array_equal(mflags, flags)
+        if mask:
+            np.testing.assert_array_equal(mwords, words.astype(np.uint32))
