@@ -110,8 +110,9 @@ def card_name() -> str | None:
 
 def timeline_summary(tl: list, t0: float, t1: float) -> dict:
     """Per-label ms sums of a runtime timeline (labels without their chunk
-    and pass: ``fe_dispatch``, ``pack_read``, ``search_submit``,
-    ``search_wait``, ``dec_dispatch``, ``dec_read``), the host's wait in
+    and pass: ``fe_dispatch``, with ``fe_stage`` and ``fe_launch`` inside
+    it, ``pack_read``, ``search_submit``, ``search_wait``,
+    ``dec_dispatch``, ``dec_read``, ``assemble``), the host's wait in
     the first ``pack_read`` (the pipeline's fill), the time from the end
     of the last ``fe_dispatch`` to the end of the call (its drain), and
     the call's wall ms (``t0``, ``t1`` on the same clock)."""

@@ -289,7 +289,12 @@ class TagDetector:
         each follows its ``packed`` tensor.
 
         ``AG_TIMELINE=1`` records ``(label, t0, t1)`` on the host clock
-        around every host-side blocking site into ``last_timeline``;
+        around every host-side blocking site, and around each chunk's
+        staging (``fe_stage``), front-end enqueue (``fe_launch``) and
+        result assembly (``assemble``), into ``last_timeline``. Every span
+        is recorded on the calling thread; the only overlaps are
+        ``fe_stage`` and ``fe_launch``, each inside its chunk's
+        ``fe_dispatch``;
         ``AG_FILL_RAMP=1`` splits a first chunk of 8 or more frames in
         half, so the host's first read waits on half a front-end."""
         b = int(imgs.shape[0])
@@ -337,20 +342,22 @@ class TagDetector:
                 and self.device.type == "cuda" else None)
         uploads: list = []
 
-        def front(lo, hi):
+        def front(ci, lo, hi):
             # a host batch is uploaded here, inside the label
             if put is not None:
-                frames = put(imgs[lo:hi], lo)
+                frames = _ev(f"fe_stage c{ci}", put, imgs[lo:hi], lo)
             elif side is not None:
-                uploads.append(_HostUpload(imgs[lo:hi], self.device, side))
+                uploads.append(_ev(f"fe_stage c{ci}", _HostUpload,
+                                   imgs[lo:hi], self.device, side))
                 frames = uploads[-1].tensor()
             else:
-                frames = imgs[lo:hi].to(self.device)
-            return frontend_packed(frames, self.params, self.consts, self.caps, dec, nms)
+                frames = _ev(f"fe_stage c{ci}", imgs[lo:hi].to, self.device)
+            return _ev(f"fe_launch c{ci}", frontend_packed,
+                       frames, self.params, self.consts, self.caps, dec, nms)
 
         def ensure_fe(ci):
             if 0 <= ci < n_chunks and fronts[ci] is None:
-                packed, luma8 = _ev(f"fe_dispatch c{ci}", front, *bounds[ci])
+                packed, luma8 = _ev(f"fe_dispatch c{ci}", front, ci, *bounds[ci])
                 fronts[ci] = (packed, luma8, _HostCopy(packed))
 
         def chunk_state(ci):
@@ -423,6 +430,9 @@ class TagDetector:
                     dispatch_job(cj, job)
 
         def apply_dec(ci, job, arr):
+            _ev(f"assemble c{ci}", assemble, ci, job, arr)
+
+        def assemble(ci, job, arr):
             valid = arr[..., 1] > 0.5
             fi, fj = np.nonzero(valid)
             if not fi.size:

@@ -577,39 +577,6 @@ struct PairCache {
   }
 };
 
-// Env-gated search statistics (AG_SEARCH_STATS=1): per-ag_find_board
-// counters dumped to stderr, for attributing host-search time between
-// seeding, candidate grows, and the expansion nest. Zero overhead in
-// the counters themselves (plain thread_local increments, no atomics).
-struct SearchStats {
-  long seeds = 0, cands = 0, grows = 0, expands = 0, cp_miss = 0,
-       vr_calls = 0, vr_hits = 0, knn50 = 0;
-  // rdtsc cycle attribution (only meaningful when stats are on)
-  unsigned long long cy_init = 0, cy_grow = 0, cy_cp = 0, cy_vr = 0,
-                     cy_knn50 = 0, cy_g1 = 0, cy_nest = 0;
-  void reset() { *this = SearchStats{}; }
-};
-static thread_local SearchStats g_stats;
-static bool stats_enabled() {
-  static const bool on = [] {
-    const char* e = std::getenv("AG_SEARCH_STATS");
-    return e && *e && *e != '0';
-  }();
-  return on;
-}
-// Scope timer feeding a SearchStats cycle counter; free when stats are
-// off (one predictable branch per scope).
-struct StatScope {
-  unsigned long long* acc;
-  unsigned long long t0;
-  explicit StatScope(unsigned long long& a)
-      : acc(stats_enabled() ? &a : nullptr),
-        t0(acc ? __builtin_ia32_rdtsc() : 0) {}
-  ~StatScope() {
-    if (acc) *acc += __builtin_ia32_rdtsc() - t0;
-  }
-};
-
 // Memo for is_valid_quad_rest verdicts keyed by the ORDERED saddle
 // index 4-tuple. The predicate is a pure function of the four saddles,
 // so caching is exact by construction. It pays on multi-pass scenes
@@ -724,12 +691,8 @@ struct Searcher {
                    ((uint64_t)(uint16_t)c << 16) | (uint64_t)(uint16_t)d;
     bool hit, val;
     QuadMemo::Entry* e = qmemo.probe(key, hit, val);
-    ++g_stats.vr_calls;
-    if (hit) { ++g_stats.vr_hits; return val; }
-    {
-      StatScope _t(g_stats.cy_vr);
-      val = is_valid_quad_rest(s[a], s[b], s[c], s[d]);
-    }
+    if (hit) return val;
+    val = is_valid_quad_rest(s[a], s[b], s[c], s[d]);
     if (e) {
       e->key = key;
       e->gen = qmemo.gen;
@@ -746,8 +709,6 @@ struct Searcher {
     PairCache::Entry& e =
         cache.probe(((uint32_t)ai << 16) | (uint32_t)bi, hit);
     if (!hit) {
-      ++g_stats.cp_miss;
-      StatScope _t(g_stats.cy_cp);
       const Saddle& a = s[ai];
       const Saddle& b = s[bi];
       float ratio = 1.0f + spacing;
@@ -765,7 +726,7 @@ struct Searcher {
       // until it found 3 neighbors ANYWHERE and then filtered nearly
       // all of them (pass-2 noise leftovers: 1476 cache-miss edges
       // x 2 sparse-field walks ≈ 2.5 ms/frame on iphone.png,
-      // tools/probe_iphone.py + AG_SEARCH_STATS)
+      // tools/probe_iphone.py)
       bool fine = radius_sq <= 16.0f * grid_fine.cell * grid_fine.cell;
       auto query = [&](float qx, float qy, const Saddle& ref,
                        int16_t* dst, int8_t& cnt) {
@@ -804,7 +765,6 @@ struct Searcher {
   // per combo. Identical predicates in identical first-accept order, so
   // the returned quad is exactly the reference's.
   bool try_expand_one(const int q[4], int out[4]) {
-    ++g_stats.expands;
     int n0, n1, n2, n3;
     int c0[3], c1[3], c2[3], c3[3];
     closest_potential(q[0], q[1], c0, n0, c1, n1);
@@ -840,8 +800,6 @@ struct Searcher {
   // Board::new + try_expand (src/board.rs:27-152) with an explicit DFS
   // stack carrying per-cell direction progress (no retries).
   void grow(const int* seed, const std::vector<uint8_t>& active_mask) {
-    ++g_stats.grows;
-    StatScope _t(g_stats.cy_grow);
     ws.reset();
     ws.active = active_mask;
     for (int i = 1; i < 4; ++i) ws.active[seed[i]] = 0;
@@ -923,11 +881,7 @@ void init_quads(const std::vector<Saddle>& s, const SpatialGrid& grid,
                 std::vector<std::array<int, 4>>& out) {
   out.clear();
   const Saddle& s0 = s[s0_idx];
-  ++g_stats.knn50;
-  {
-    StatScope _t(g_stats.cy_knn50);
-    grid.knn(s0.x, s0.y, std::min<size_t>(50, s.size()), nn);
-  }
+  grid.knn(s0.x, s0.y, std::min<size_t>(50, s.size()), nn);
   // scratch reused across the 30 seeds x 2+ passes per frame (the
   // per-call mallocs showed up at ~180 allocations/frame); workers are
   // shared-nothing so thread_local is safe
@@ -949,13 +903,9 @@ void init_quads(const std::vector<Saddle>& s, const SpatialGrid& grid,
   size_t nd = diff.size();
   static thread_local std::vector<uint8_t> g1;
   g1.assign(nd * nd, 0);
-  {
-    StatScope _t(g_stats.cy_g1);
-    for (size_t a = 0; a < nd; ++a)
-      for (size_t b = a + 1; b < nd; ++b)
-        g1[a * nd + b] = gate_diag_theta(s[diff[a]], s[diff[b]]);
-  }
-  StatScope _tn(g_stats.cy_nest);
+  for (size_t a = 0; a < nd; ++a)
+    for (size_t b = a + 1; b < nd; ++b)
+      g1[a * nd + b] = gate_diag_theta(s[diff[a]], s[diff[b]]);
   // The pair nest evaluates is_valid_quad_rest = [c0*c1 convexity] &&
   // [mid gates] && [both diagonals forward of v02]. The first and last
   // conjuncts depend on (s0, s1, ONE diagonal), so per s1 they are
@@ -1071,7 +1021,6 @@ int ag_find_board(const float* px, const float* py, const float* theta,
   cache.reset(m);
   static thread_local QuadMemo qmemo;  // shared-nothing across workers
   qmemo.next_gen();
-  if (stats_enabled()) g_stats.reset();
   Searcher searcher(s, grid, grid_fine, spacing_ratio, ws, cache, qmemo);
   int best_score = 0;
   std::vector<std::array<int, 4>> best_quads;
@@ -1083,12 +1032,7 @@ int ag_find_board(const float* px, const float* py, const float* theta,
   while (!seeds.empty() && count < max_seeds) {
     int s0 = seeds.back();
     seeds.pop_back();
-    ++g_stats.seeds;
-    {
-      StatScope _t(g_stats.cy_init);
-      init_quads(s, grid, s0, nn, cand);
-    }
-    g_stats.cands += (long)cand.size();
+    init_quads(s, grid, s0, nn, cand);
     for (auto& q : cand) {
       int qi[4] = {q[0], q[1], q[2], q[3]};
       searcher.grow(qi, active_mask);
@@ -1102,18 +1046,6 @@ int ag_find_board(const float* px, const float* py, const float* theta,
     if (best_score >= early_exit_score) break;
     ++count;
   }
-  if (stats_enabled())
-    std::fprintf(stderr,
-                 "[ag_stats] m=%d seeds=%ld cands=%ld grows=%ld "
-                 "expands=%ld cp_miss=%ld vr=%ld/%ld knn50=%ld best=%d "
-                 "cyc init=%llu grow=%llu cp=%llu vr=%llu "
-                 "knn50=%llu g1=%llu nest=%llu\n",
-                 m, g_stats.seeds, g_stats.cands, g_stats.grows,
-                 g_stats.expands, g_stats.cp_miss, g_stats.vr_hits,
-                 g_stats.vr_calls, g_stats.knn50, best_score,
-                 g_stats.cy_init, g_stats.cy_grow, g_stats.cy_cp,
-                 g_stats.cy_vr, g_stats.cy_knn50, g_stats.cy_g1,
-                 g_stats.cy_nest);
   if (best_score == 0) return 0;
 
   // restore the best board into the workspace and repair holes

@@ -43,6 +43,28 @@ def _labels(tl):
     return [e[0] for e in tl]
 
 
+# the JAX facade's label kinds; the port adds fe_stage and fe_launch (inside
+# fe_dispatch) and assemble
+JAX_KINDS = ("fe_dispatch", "pack_read", "search_submit", "search_wait", "dec_dispatch",
+             "dec_read")
+CHILDREN = ("fe_stage", "fe_launch")
+
+
+def _spans_nest_or_part(tl, t0, t1):
+    """Every span lies inside the call ``[t0, t1]``; two spans overlap only
+    where a ``fe_stage`` or ``fe_launch`` lies inside its own chunk's
+    ``fe_dispatch``."""
+    spans = sorted(tl, key=lambda e: e[1])
+    for label, a, b in spans:
+        assert t0 <= a <= b <= t1, label
+    for i, (la, a0, a1) in enumerate(spans):
+        for lb, b0, b1 in spans[i + 1:]:
+            if b0 >= a1:
+                break
+            kind, ci = lb.split(" ")[:2]
+            assert kind in CHILDREN and la == f"fe_dispatch {ci}" and b1 <= a1, (la, lb)
+
+
 def test_timeline_labels_match_jax(det, euroc, monkeypatch):
     """The wavefront walk, the lazy front-end dispatch and the tail visit
     the host's blocking sites in the JAX facade's order."""
@@ -54,8 +76,9 @@ def test_timeline_labels_match_jax(det, euroc, monkeypatch):
     jdet = JaxDetector("t36h11")
     want = jdet.detect_batch(frames, chunk=2)
     assert [set(r) for r in got] == [set(r) for r in want]
-    assert _labels(det.last_timeline) == _labels(jdet.last_timeline)
-    assert _labels(det.last_timeline)[:2] == ["fe_dispatch c0", "fe_dispatch c1"]
+    ported = [lb for lb in _labels(det.last_timeline) if lb.split(" ")[0] in JAX_KINDS]
+    assert ported == _labels(jdet.last_timeline)
+    assert ported[:2] == ["fe_dispatch c0", "fe_dispatch c1"]
     for label, t0, t1 in det.last_timeline:
         assert t0 <= t1, label
 
@@ -63,9 +86,10 @@ def test_timeline_labels_match_jax(det, euroc, monkeypatch):
 @pytest.mark.parametrize("search_async", ["0", "1"])
 def test_every_label_once_per_chunk_and_pass(det, monkeypatch, search_async):
     """Three frames of a two-board scene at chunk 1: every chunk decodes in
-    both passes, so each blocking site appears once per chunk (front-end,
-    saddle read, first-pass read) or once per chunk and pass (search,
-    decode), and the final pass is read once, fused."""
+    both passes, so each blocking site appears once per chunk (front-end
+    with its staging and launch, saddle read, first-pass read) or once per
+    chunk and pass (search, decode, assembly, the fused tail's slices
+    included), and the final pass is read once, fused."""
     monkeypatch.setenv("AG_TIMELINE", "1")
     monkeypatch.setenv("AG_SEARCH_ASYNC", search_async)
     scene = make_stress_scene(2, kind="two_boards")
@@ -76,8 +100,81 @@ def test_every_label_once_per_chunk_and_pass(det, monkeypatch, search_async):
         want.update({f"fe_dispatch c{c}": 1, f"pack_read c{c}": 1,
                      f"search_submit c{c} p0": 1, f"search_submit c{c} p1": 1,
                      f"search_wait c{c}": 2, f"dec_dispatch c{c}": 2,
-                     f"dec_read c{c}": 1})
+                     f"dec_read c{c}": 1, f"fe_stage c{c}": 1, f"fe_launch c{c}": 1,
+                     f"assemble c{c}": 2})
     assert seen == want
+
+
+@pytest.mark.parametrize("put", [None, lambda frames, lo: frames.clone()],
+                         ids=["to_device", "put"])
+def test_stage_and_launch_lie_apart_inside_their_fe_dispatch(det, euroc, monkeypatch, put):
+    """Each chunk's staging and front-end launch, on the ``.to`` path and
+    through a ``put``, lie one after the other inside that chunk's
+    ``fe_dispatch``."""
+    monkeypatch.setenv("AG_TIMELINE", "1")
+    monkeypatch.setenv("AG_SEARCH_ASYNC", "0")
+    frames = torch.from_numpy(np.stack([euroc, np.zeros_like(euroc), euroc]))
+    det._detect_hybrid(frames, chunk=1, put=put)
+    spans = {label: (a, b) for label, a, b in det.last_timeline}
+    for c in range(3):
+        fa, fb = spans[f"fe_dispatch c{c}"]
+        sa, sb = spans[f"fe_stage c{c}"]
+        la, lb = spans[f"fe_launch c{c}"]
+        assert fa <= sa <= sb <= la <= lb <= fb
+
+
+def test_spans_overlap_only_as_children_under_the_background_search(det, monkeypatch):
+    """With the search on its worker, finishing at random times while the
+    main thread switches every microsecond, every span still lies inside
+    the call, and none overlaps another but a child inside its own
+    ``fe_dispatch``: nothing is recorded from the worker."""
+    scene = make_stress_scene(2, kind="two_boards")
+    frames = np.stack([scene, np.zeros_like(scene), scene])
+    search, rng = native.find_board_batch, random.Random(1)
+
+    def slow(*a, **kw):
+        time.sleep(rng.uniform(0.0, 0.01))
+        return search(*a, **kw)
+
+    monkeypatch.setattr(native, "find_board_batch", slow)
+    monkeypatch.setenv("AG_SEARCH_ASYNC", "1")
+    monkeypatch.setenv("AG_TIMELINE", "1")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            det.detect_batch(frames, chunk=1)
+            t1 = time.perf_counter()
+            _spans_nest_or_part(det.last_timeline, t0, t1)
+            assert {lb.split(" ")[0] for lb in _labels(det.last_timeline)} == {
+                *JAX_KINDS, *CHILDREN, "assemble"}
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_results_equal_with_and_without_the_timeline(det, monkeypatch):
+    scene = make_stress_scene(2, kind="two_boards")
+    frames = np.stack([scene, np.zeros_like(scene), scene])
+    monkeypatch.setenv("AG_TIMELINE", "1")
+    traced = det.detect_batch(frames, chunk=1)
+    assert det.last_timeline
+    monkeypatch.delenv("AG_TIMELINE")
+    assert det.detect_batch(frames, chunk=1) == traced
+    assert det.last_timeline is None
+
+
+def test_no_assemble_span_where_the_search_finds_nothing(det, euroc, monkeypatch):
+    """A chunk whose search finds no board decodes nothing, so nothing is
+    assembled: its ``assemble`` span is missing, the others' are there."""
+    monkeypatch.setenv("AG_TIMELINE", "1")
+    monkeypatch.setenv("AG_SEARCH_ASYNC", "0")
+    frames = np.stack([euroc, np.zeros_like(euroc), euroc])
+    res = det.detect_batch(frames, chunk=1)
+    assert res[1] == {} and len(res[0]) == len(res[2]) == 36
+    seen = Counter(_labels(det.last_timeline))
+    assert seen["assemble c0"] >= 1 and seen["assemble c2"] >= 1
+    assert "assemble c1" not in seen and "dec_dispatch c1" not in seen
 
 
 def test_no_timeline_without_the_variable(det, euroc, monkeypatch):
